@@ -1,0 +1,108 @@
+"""Message-passing neural network surrogate (port of ``repro/models/mpnn.py``).
+
+Dense-adjacency MPNN over molecular graphs: node states from one-hot atom
+types, T message steps (an edge matrix per bond type applied to neighbour
+states, summed over the dense adjacency by the ``mpnn_mp`` kernel) each
+followed by a GRU update, then a masked-sum readout MLP to one scalar.
+
+The ensemble axis that the JAX package vmaps is written out: every parameter
+carries a leading (E,) axis, node states are (E,B,N,Hd), and the message
+kernel sees the flattened E*B batch.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.configs.mpnn_surrogate import MPNNConfig
+from repro_torch.kernels.mpnn_mp import ops as mp_ops
+
+
+def param_shapes(cfg: MPNNConfig) -> dict[str, tuple[int, ...]]:
+    """Names and (E, ...) shapes of the stacked parameters, in the order and
+    with the names of ``repro.models.mpnn.mpnn_params``."""
+    E, h, r = cfg.ensemble, cfg.hidden, cfg.readout_hidden
+    return {
+        "embed": (E, cfg.num_atom_types, h),
+        "edge_w": (E, cfg.num_bond_types, h * h),
+        "gru_wz": (E, 2 * h, h),
+        "gru_wr": (E, 2 * h, h),
+        "gru_wh": (E, 2 * h, h),
+        "ro_w1": (E, h, r),
+        "ro_b1": (E, r),
+        "ro_w2": (E, r, 1),
+        "ro_b2": (E, 1),
+    }
+
+
+def _init_scales(cfg: MPNNConfig) -> dict[str, float | None]:
+    """Scale of each parameter's truncated normal, as ``InitMaker.param``
+    gives it (``scale`` if set, else 1/sqrt(fan_in)); None means zeros."""
+    h, r = cfg.hidden, cfg.readout_hidden
+    return {
+        "embed": 1.0, "edge_w": 0.05,
+        "gru_wz": 1 / math.sqrt(2 * h), "gru_wr": 1 / math.sqrt(2 * h),
+        "gru_wh": 1 / math.sqrt(2 * h),
+        "ro_w1": 1 / math.sqrt(h), "ro_b1": None,
+        "ro_w2": 1 / math.sqrt(r), "ro_b2": None,
+    }
+
+
+def _bmm(x, w):
+    """Per-member matmul: x (E,B,N,D) @ w (E,D,F) -> (E,B,N,F)."""
+    E, B, N, D = x.shape
+    return torch.bmm(x.reshape(E, B * N, D), w).reshape(E, B, N, w.shape[-1])
+
+
+class MPNNEnsemble(nn.Module):
+    """E MPNNs evaluated together; forward returns (E, B) predictions."""
+
+    def __init__(self, cfg: MPNNConfig, generator: torch.Generator):
+        super().__init__()
+        self.cfg = cfg
+        scales = _init_scales(cfg)
+        for name, shape in param_shapes(cfg).items():
+            p = torch.zeros(shape)
+            if scales[name] is not None:
+                nn.init.trunc_normal_(p, 0.0, 1.0, -2.0, 2.0,
+                                      generator=generator).mul_(scales[name])
+            self.register_parameter(name, nn.Parameter(p))
+
+    def forward(self, atoms, bonds, mask, impl: str | None = None):
+        """atoms (B,N) int; bonds (B,N,N) int (0 = none); mask (B,N) in
+        {0,1}. impl picks the message step (see ``mp_ops.message_pass``);
+        None takes the kernel on CUDA and the plain version on the CPU."""
+        cfg = self.cfg
+        E, hd = cfg.ensemble, cfg.hidden
+        B, N = atoms.shape
+        mask = mask.to(self.embed.dtype)
+        h = self.embed[:, atoms.long()] * mask[..., None]         # (E,B,N,Hd)
+
+        bond_oh = F.one_hot(bonds.long(), cfg.num_bond_types).to(h.dtype)
+        edge_mat = torch.matmul(bond_oh.reshape(1, B * N * N, -1),
+                                self.edge_w)                    # (E,BNN,Hd*Hd)
+        edge_mat = edge_mat.reshape(E * B, N, N, hd, hd)
+        adj = (bonds > 0).to(h.dtype) * mask[:, :, None] * mask[:, None, :]
+        adj = adj.expand(E, B, N, N).reshape(E * B, N, N)
+
+        for _ in range(cfg.message_steps):
+            m = mp_ops.message_pass(h.reshape(E * B, N, hd), edge_mat, adj,
+                                    impl=impl).reshape(E, B, N, hd)
+            hm = torch.cat([h, m], dim=-1)
+            z = torch.sigmoid(_bmm(hm, self.gru_wz))
+            r = torch.sigmoid(_bmm(hm, self.gru_wr))
+            cand = torch.tanh(_bmm(torch.cat([r * h, m], dim=-1), self.gru_wh))
+            h = ((1 - z) * h + z * cand) * mask[..., None]
+
+        pooled = (h * mask[..., None]).sum(dim=2)                 # (E,B,Hd)
+        x = torch.relu(torch.bmm(pooled, self.ro_w1) + self.ro_b1[:, None])
+        return (torch.bmm(x, self.ro_w2) + self.ro_b2[:, None])[..., 0]
+
+
+def ucb(preds, kappa: float = 2.0):
+    """Upper confidence bound over ensemble predictions (E, B) -> (B,), with
+    the population std, as ``jnp.std`` takes it."""
+    return preds.mean(dim=0) + kappa * preds.std(dim=0, correction=0)

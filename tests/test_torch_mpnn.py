@@ -1,0 +1,106 @@
+"""The port's MPNN ensemble against ``repro.models.mpnn`` on parameters
+carried across with ``params_from_numpy``; inputs are real molecules from
+the synthetic space."""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.apps.electrolyte import Surrogate as JaxSurrogate
+from repro.configs import mpnn_surrogate as jax_configs
+from repro.data import molecules
+from repro.models import mpnn as jax_mpnn
+from repro_torch.configs import mpnn_surrogate as configs
+from repro_torch.models.convert import params_from_numpy
+from repro_torch.models.mpnn import MPNNEnsemble, param_shapes, ucb
+
+CONFIGS = {"reduced": (jax_configs.reduced(), configs.reduced()),
+           "full": (jax_configs.CONFIG, configs.CONFIG)}
+
+
+def _jax_params(jax_cfg, seed=0):
+    return jax.tree.map(np.asarray, JaxSurrogate(jax_cfg, seed=seed).params)
+
+
+def _model(cfg, tree):
+    model = MPNNEnsemble(cfg, torch.Generator().manual_seed(0))
+    model.load_state_dict(params_from_numpy(tree, "cpu"))
+    return model
+
+
+def test_configs_match_jax():
+    for jax_cfg, cfg in CONFIGS.values():
+        assert vars(cfg) == vars(jax_cfg)
+
+
+def test_params_round_trip():
+    jax_cfg, cfg = CONFIGS["reduced"]
+    tree = _jax_params(jax_cfg)
+    back = {n: t.numpy() for n, t in _model(cfg, tree).state_dict().items()}
+    assert list(back) == list(param_shapes(cfg))
+    assert sorted(back) == sorted(tree)      # JAX keeps dict keys sorted
+    for n in tree:
+        assert back[n].dtype == tree[n].dtype
+        np.testing.assert_array_equal(back[n], tree[n])
+
+
+@pytest.mark.parametrize("fault", ["missing", "extra", "shape", "dtype"])
+def test_params_from_numpy_rejects(fault):
+    tree = dict(_jax_params(CONFIGS["reduced"][0]))
+    if fault == "missing":
+        del tree["gru_wr"]
+    elif fault == "extra":
+        tree["gru_wq"] = tree["gru_wr"]
+    elif fault == "shape":
+        tree["gru_wh"] = tree["gru_wh"][:, :-1]
+    else:
+        tree["ro_b1"] = tree["ro_b1"].astype(np.float64)
+    with pytest.raises(ValueError):
+        params_from_numpy(tree, "cpu")
+
+
+def test_init_law():
+    """Truncated normal on [-2, 2] times InitMaker's scale; zero biases;
+    deterministic in the generator's seed."""
+    cfg = configs.CONFIG
+    a = MPNNEnsemble(cfg, torch.Generator().manual_seed(3)).state_dict()
+    b = MPNNEnsemble(cfg, torch.Generator().manual_seed(3)).state_dict()
+    scales = {"embed": 1.0, "edge_w": 0.05, "gru_wz": (2 * 64) ** -0.5,
+              "gru_wh": (2 * 64) ** -0.5, "ro_w1": 64 ** -0.5,
+              "ro_w2": 128 ** -0.5}
+    for n, t in a.items():
+        assert torch.equal(t, b[n])
+    for n in ("ro_b1", "ro_b2"):
+        assert not a[n].any()
+    for n, s in scales.items():
+        t = a[n] / s
+        assert t.abs().max() <= 2.0
+        # std of a unit normal truncated to [-2, 2] is 0.8796
+        assert abs(t.std().item() - 0.8796) < 0.1, n
+
+
+@pytest.mark.parametrize("name,impl,B", [("reduced", "ref", 8),
+                                         ("reduced", "kernel", 8),
+                                         ("full", "ref", 2)])
+def test_forward_matches_ensemble_apply(name, impl, B):
+    jax_cfg, cfg = CONFIGS[name]
+    tree = _jax_params(jax_cfg, seed=1)
+    space = molecules.MoleculeSpace(num_molecules=200)
+    feats = molecules.featurize(space, range(5, 5 + B))
+    want = jax_mpnn.ensemble_apply(
+        jax.tree.map(jnp.asarray, tree),
+        *(jnp.asarray(feats[k]) for k in ("atoms", "bonds", "mask")),
+        jax_cfg, impl=impl)
+    with torch.inference_mode():
+        got = _model(cfg, tree)(
+            *(torch.from_numpy(feats[k]) for k in ("atoms", "bonds", "mask")))
+    assert got.shape == (cfg.ensemble, B)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=1e-4)
+
+
+def test_ucb_matches_jax():
+    preds = np.random.default_rng(0).standard_normal((16, 50)).astype(np.float32)
+    np.testing.assert_allclose(ucb(torch.from_numpy(preds), 1.5).numpy(),
+                               np.asarray(jax_mpnn.ucb(jnp.asarray(preds), 1.5)),
+                               rtol=1e-6, atol=1e-6)
