@@ -17,6 +17,20 @@ Phases:
   4. Report: time each kernel, its plain version and the one PyTorch call
      that computes the same function, with CUDA events at the surrogate's
      chunk shape, beside the bound for that work.
+  5. Hold the flash-attention kernel against its plain version on the six
+     cases of the JAX kernel tests, in f32 and bf16, and at the serving
+     shape (8, 2048, 16 heads, 8 KV heads, hd 128) in bf16.
+  6. Build internlm2-1.8b at its published widths (24 layers, d_model 2048,
+     vocab 92544) with seeded random f32 weights drawn on the card, and hold
+     one prefill (B=2, S=1024) through the kernel against the same prefill
+     through the plain attention: last-position logits and the KV cache.
+  7. Serve: answer 3 requests of 8 prompts x 2048 tokens, 32 new tokens
+     each, through ``repro_torch.serving.Engine`` in bf16. The flash launch
+     count is set to 0 just before this phase and read just after it.
+  8. Report: time the flash kernel, its plain version and PyTorch's
+     ``scaled_dot_product_attention`` at the serving shape, beside the bound.
+
+The kernels are built first, one ``nvcc`` per source, all in parallel.
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line and,
 last, ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
@@ -37,10 +51,17 @@ import torch
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
 
 from repro_torch.apps.electrolyte import Surrogate, rank_space  # noqa: E402
+from repro_torch.configs.base import get_config  # noqa: E402
 from repro_torch.configs.mpnn_surrogate import CONFIG  # noqa: E402
 from repro_torch.data.molecules import MoleculeSpace, featurize  # noqa: E402
+from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
+from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import attention_reference  # noqa: E402
 from repro_torch.kernels.mpnn_mp import mpnn_mp, ops  # noqa: E402
 from repro_torch.kernels.mpnn_mp.ref import message_pass_reference  # noqa: E402
+from repro_torch.models import api as lm_api  # noqa: E402
+from repro_torch.serving.engine import Engine  # noqa: E402
 
 DEV = "cuda"
 SEED = 0
@@ -56,6 +77,32 @@ TOLERANCE = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2.0 ** -7, 1e-4)}
 # outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+BF16_FLOP_PER_S = 989e12     # dense, tensor cores
+
+LM_ARCH = "internlm2-1.8b"
+# (B, Sq, Sk, H, KVH, hd, causal, window, softcap, q_offset):
+# tests/test_kernels.py::test_flash_attention
+FA_CASES = [
+    (2, 128, 128, 4, 2, 32, True, None, None, 0),
+    (1, 256, 256, 4, 4, 64, True, 64, None, 0),
+    (2, 128, 128, 8, 2, 32, True, None, 50.0, 0),
+    (1, 128, 256, 4, 2, 32, True, None, None, 128),
+    (2, 128, 128, 4, 1, 32, False, None, None, 0),
+    (1, 64, 64, 2, 2, 128, True, 32, 30.0, 0),
+]
+SERVE_REQUESTS, SERVE_BATCH, SERVE_PROMPT, SERVE_MAX_NEW = 3, 8, 2048, 32
+# The prefill attention of internlm2-1.8b at the serving batch.
+FA_SERVING = (SERVE_BATCH, SERVE_PROMPT, SERVE_PROMPT, 16, 8, 128, True,
+              None, None, 0)
+# The JAX kernel tests' tolerances: f32 kernel and plain version differ only
+# in summation order; in bf16 both round an f32 result to bf16.
+FA_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+PREFILL_SHAPE = (2, 1024)
+# f32 on both sides, TF32 off: the prefills differ only in the attention's
+# summation order (about 1e-7 relative per layer), which 24 layers of random
+# weights may amplify; 1e-3 leaves that 100x room while a real fault moves
+# the O(1) logits by O(1).
+PREFILL_TOL = 1e-3
 
 
 def log(msg: str) -> None:
@@ -203,9 +250,202 @@ def phase_report(chunk_batch: int) -> dict:
             "library_ms": library_ms, "shape": [B, N, Hd], "dtype": "float32"}
 
 
+def fa_inputs(case, dtype, gen):
+    B, Sq, Sk, H, KVH, hd = case[:6]
+    q = torch.randn(B, Sq, H, hd, generator=gen, device=DEV, dtype=dtype)
+    k = torch.randn(B, Sk, KVH, hd, generator=gen, device=DEV, dtype=dtype)
+    v = torch.randn(B, Sk, KVH, hd, generator=gen, device=DEV, dtype=dtype)
+    causal, window, softcap, q_offset = case[6:]
+    return (q, k, v), dict(causal=causal, window=window, softcap=softcap,
+                           q_offset=q_offset)
+
+
+def hold_flash(case, dtype, gen) -> float:
+    """Kernel against the plain version on the same inputs; max abs error."""
+    (q, k, v), kw = fa_inputs(case, dtype, gen)
+    got = fa_ops.attention(q, k, v, impl="kernel", **kw)
+    want = attention_reference(q, k, v, **kw)
+    torch.cuda.synchronize()
+    check(got.dtype == q.dtype and got.shape == q.shape,
+          f"flash_attention output {got.dtype} {tuple(got.shape)}")
+    tol = FA_TOL[dtype]
+    err = (got.float() - want.float()).abs().max().item()
+    check(torch.allclose(got.float(), want.float(), rtol=tol, atol=tol),
+          f"flash_attention {case} {dtype}: max abs err {err}")
+    log(f"  flash_attention {case[:6]} {kw} {str(dtype):14s} max abs err "
+        f"{err:.3e} (rtol = atol = {tol:.0e})")
+    return err
+
+
+def phase_flash_kernels() -> dict:
+    log("phase 5: hold flash_attention against its plain version")
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 3)
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for case in FA_CASES:
+            errs[case, dtype] = hold_flash(case, dtype, gen)
+    errs[FA_SERVING] = hold_flash(FA_SERVING, torch.bfloat16, gen)
+    return {"max_abs_err": errs[FA_SERVING]}
+
+
+def lm_tokens(rng, batch, seq, vocab):
+    return rng.integers(0, vocab, size=(batch, seq), dtype=np.int32)
+
+
+def phase_lm_prefill() -> None:
+    log(f"phase 6: full-width {LM_ARCH} in f32, prefill through the kernel "
+        "against prefill through the plain attention")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_config(LM_ARCH).replace(param_dtype="float32",
+                                      compute_dtype="float32",
+                                      attn_impl="kernel")
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 4)
+    params = lm_api.init_params(cfg, gen, device=DEV)
+    torch.cuda.synchronize()
+    n = sum(t.numel() for t in _leaves(params))
+    log(f"  {cfg.num_layers} layers, d_model {cfg.d_model}, {cfg.num_heads} "
+        f"heads / {cfg.num_kv_heads} KV heads of {cfg.resolved_head_dim}, "
+        f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}: {n / 1e9:.3f} G "
+        f"parameters drawn on the card in {time.perf_counter() - t0:.1f} s")
+    B, S = PREFILL_SHAPE
+    tokens = torch.as_tensor(
+        lm_tokens(np.random.default_rng(SEED), B, S, cfg.vocab_size),
+        device=DEV)
+    with torch.inference_mode():
+        got, got_cache = lm_api.prefill(params, cfg, {"tokens": tokens})
+        want, want_cache = lm_api.prefill(
+            params, cfg.replace(attn_impl="ref"), {"tokens": tokens})
+    torch.cuda.synchronize()
+    check(got.shape == (B, cfg.vocab_size) and bool(torch.isfinite(got).all()),
+          f"prefill logits {tuple(got.shape)} not finite or misshapen")
+    for what, a, b in (("logits", got, want),
+                       ("K cache", got_cache["k"], want_cache["k"]),
+                       ("V cache", got_cache["v"], want_cache["v"])):
+        err = (a - b).abs().max().item()
+        check(torch.allclose(a, b, rtol=PREFILL_TOL, atol=PREFILL_TOL),
+              f"f32 prefill {what}: kernel vs plain max abs err {err}")
+        log(f"  B={B} S={S} {what} {tuple(a.shape)}: kernel vs plain max abs "
+            f"err {err:.3e} (rtol = atol = {PREFILL_TOL:.0e})")
+
+
+def _leaves(tree):
+    for v in tree.values():
+        yield from (_leaves(v) if isinstance(v, dict) else (v,))
+
+
+def phase_lm_serve() -> dict:
+    log(f"phase 7: serve {SERVE_REQUESTS} requests of {SERVE_BATCH} x "
+        f"{SERVE_PROMPT} tokens, {SERVE_MAX_NEW} new, {LM_ARCH} in bf16")
+    cfg = get_config(LM_ARCH).replace(attn_impl="kernel")
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 5)
+    engine = Engine(cfg, lm_api.init_params(cfg, gen, device=DEV),
+                    max_new=SERVE_MAX_NEW)
+    rng = np.random.default_rng(SEED + 5)
+    times = {"prefill": [], "decode": []}
+    bad_logits = torch.zeros((), dtype=torch.long, device=DEV)
+
+    def timed(name, fn):
+        def run(*args, **kw):
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)     # returns host tokens: the device is done
+            times[name].append(time.perf_counter() - t0)
+            return out
+        return run
+
+    def finite(fn):
+        def run(*args, **kw):
+            logits, cache = fn(*args, **kw)
+            bad_logits.add_((~torch.isfinite(logits)).sum())
+            return logits, cache
+        return run
+
+    engine.prefill_batch = timed("prefill", engine.prefill_batch)
+    engine.decode_batch = timed("decode", engine.decode_batch)
+    plain = lm_api.prefill, lm_api.decode_step
+    lm_api.prefill, lm_api.decode_step = finite(plain[0]), finite(plain[1])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    flash_attention.LAUNCHES = 0
+    try:
+        for r in range(SERVE_REQUESTS):
+            times["prefill"].clear()
+            times["decode"].clear()
+            prompts = lm_tokens(rng, SERVE_BATCH, SERVE_PROMPT, cfg.vocab_size)
+            t0 = time.perf_counter()
+            out = engine.generate(prompts)
+            wall = time.perf_counter() - t0
+            check(out.shape == (SERVE_BATCH, SERVE_PROMPT + SERVE_MAX_NEW),
+                  f"request {r}: output {out.shape}")
+            check(np.array_equal(out[:, :SERVE_PROMPT], prompts),
+                  f"request {r}: prompts not echoed")
+            new = out[:, SERVE_PROMPT:]
+            check(bool(((new >= 0) & (new < cfg.vocab_size)).all()),
+                  f"request {r}: token outside the vocabulary")
+            log(f"  request {r}: prefill {times['prefill'][0] * 1e3:.1f} ms, "
+                f"decode {np.mean(times['decode']) * 1e3:.2f} ms/step over "
+                f"{len(times['decode'])} steps, wall {wall * 1e3:.1f} ms; "
+                f"row 0 tail {new[0, -6:].tolist()}")
+    finally:
+        lm_api.prefill, lm_api.decode_step = plain
+    launches = flash_attention.LAUNCHES
+    per_request = cfg.num_layers
+    check(bad_logits.item() == 0, f"{bad_logits.item()} non-finite logits")
+    log(f"  all logits finite; flash_attention launches {launches} "
+        f"({per_request} per request); steady-state "
+        f"{engine.throughput():.1f} tok/s over {SERVE_REQUESTS - 1} warm "
+        f"requests; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    check(launches == SERVE_REQUESTS * per_request,
+          f"flash_attention launched {launches} times, expected "
+          f"{SERVE_REQUESTS * per_request}")
+    return {"launches": launches, "launches_per_request": per_request}
+
+
+def live_pairs(Sq, Sk, causal, window, q_offset) -> int:
+    """(query, key) pairs the mask keeps: the work the attention must do."""
+    qpos = np.arange(Sq, dtype=np.int64) + q_offset
+    hi = np.minimum(qpos + 1, Sk) if causal else np.full(Sq, Sk)
+    lo = np.maximum(qpos - window + 1, 0) if window else np.zeros(Sq, np.int64)
+    return int(np.maximum(hi - lo, 0).sum())
+
+
+def phase_flash_report() -> dict:
+    log("phase 8: time flash_attention at the serving shape (bf16)")
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 6)
+    (q, k, v), kw = fa_inputs(FA_SERVING, torch.bfloat16, gen)
+    ms = median_ms(lambda: fa_ops.attention(q, k, v, impl="kernel", **kw))
+    plain_ms = median_ms(lambda: attention_reference(q, k, v, **kw))
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    library_ms = median_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True))
+    B, Sq, H, hd = q.shape
+    moved = sum(t.numel() * t.element_size() for t in (q, k, v, q))
+    flops = 4 * hd * B * H * live_pairs(Sq, k.shape[1], kw["causal"],
+                                        kw["window"], kw["q_offset"])
+    bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+    flops_ms = flops / BF16_FLOP_PER_S * 1e3
+    log(f"  kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+        f"scaled_dot_product_attention {library_ms:.3f} ms; bound "
+        f"{max(bytes_ms, flops_ms):.3f} ms ({flops / 1e9:.1f} GFLOP at "
+        f"{BF16_FLOP_PER_S / 1e12:.0f} TFLOP/s = {flops_ms:.3f} ms; "
+        f"{moved / 2**20:.0f} MiB at {HBM_BYTES_PER_S / 1e12:.2f} TB/s = "
+        f"{bytes_ms:.3f} ms)")
+    return {"ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(bytes_ms, flops_ms),
+            "bound_by": "bytes" if bytes_ms >= flops_ms else "operations",
+            "library_ms": library_ms, "shape": list(FA_SERVING[:6]),
+            "dtype": "bfloat16"}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
+    t0 = time.perf_counter()
+    built = _build.build_libraries()
+    log(f"built {', '.join(built)} from source, one nvcc each in parallel, "
+        f"in {time.perf_counter() - t0:.1f} s")
     sur = Surrogate(CONFIG, seed=SEED, device=DEV)
     chunk_batch = CONFIG.ensemble * sur.chunk_size(SPACE.max_atoms)
     kernel = phase_kernels(chunk_batch)
@@ -218,6 +458,15 @@ def main() -> None:
     phase_surrogate(sur, feats)
     kernel.update(phase_serve(sur, feats))
     kernel.update(phase_report(chunk_batch))
+    del sur, feats
+    torch.cuda.empty_cache()
+
+    flash = phase_flash_kernels()
+    phase_lm_prefill()
+    torch.cuda.empty_cache()
+    flash.update(phase_lm_serve())
+    torch.cuda.empty_cache()
+    flash.update(phase_flash_report())
 
     card = subprocess.run(
         ["nvidia-smi", "--id=0", "--query-gpu=name,power.limit",
@@ -228,7 +477,11 @@ def main() -> None:
         "name": "mpnn_mp", "route": "cuda",
         "source": "src/repro_torch/kernels/mpnn_mp/mpnn_mp.cu",
         "replaces": "src/repro/kernels/mpnn_mp/mpnn_mp.py:38",
-        **kernel}]}))
+        **kernel}, {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/flash_attention.py:91",
+        **flash}]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

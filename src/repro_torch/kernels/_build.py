@@ -1,29 +1,78 @@
 """Builds the port's CUDA kernels from the sources in this package at first
 use, into ``<repo>/build/torch_kernels/<name>/``.
 
-Each kernel source has a plain C interface and includes no PyTorch header,
-so ``nvcc`` compiles it in seconds; ``torch.utils.cpp_extension.load`` does
-the compile and link, and the shared library is then bound with ``ctypes``.
+Each kernel source has a plain C interface and includes no PyTorch header.
+``nvcc`` compiles it straight into a shared library named after a hash of
+the sources and flags (so an edited source is rebuilt and an unchanged one
+is not), and the library is bound with ``ctypes``. ``build_libraries``
+starts one ``nvcc`` per library, all at once, and waits for all of them.
 Nothing is built when a module is imported, and a failed build raises.
 """
 from __future__ import annotations
 
 import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
 from pathlib import Path
 
 KERNELS_DIR = Path(__file__).resolve().parent
 BUILD_DIR = KERNELS_DIR.parents[2] / "build" / "torch_kernels"
-CUDA_FLAGS = ["-O3", "-gencode=arch=compute_90a,code=sm_90a"]
+CUDA_FLAGS = ["-O3", "-std=c++17", "-gencode=arch=compute_90a,code=sm_90a",
+              "-shared", "-Xcompiler", "-fPIC"]
+
+# Sources of each kernel library, relative to ``repro_torch/kernels``.
+LIBRARIES = {
+    "mpnn_mp": ("mpnn_mp/mpnn_mp.cu",),
+    "flash_attention": ("flash_attention/flash_attention.cu",),
+}
 
 
-def load_library(name: str, *sources: str) -> ctypes.CDLL:
-    """Compile ``sources`` (paths relative to ``repro_torch/kernels``) into
-    the shared library ``name`` and load it."""
-    from torch.utils.cpp_extension import load
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
 
-    build_dir = BUILD_DIR / name
-    build_dir.mkdir(parents=True, exist_ok=True)
-    path = load(name=name, sources=[str(KERNELS_DIR / s) for s in sources],
-                build_directory=str(build_dir), extra_cuda_cflags=CUDA_FLAGS,
-                is_python_module=False, verbose=False)
-    return ctypes.CDLL(path)
+    path = (os.path.join(CUDA_HOME, "bin", "nvcc") if CUDA_HOME
+            else shutil.which("nvcc"))
+    if not path or not os.path.exists(path):
+        raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
+    return path
+
+
+def _target(name: str) -> Path:
+    digest = hashlib.sha256(" ".join(CUDA_FLAGS).encode())
+    for src in LIBRARIES[name]:
+        digest.update((KERNELS_DIR / src).read_bytes())
+    return BUILD_DIR / name / f"lib{name}-{digest.hexdigest()[:16]}.so"
+
+
+def build_libraries(names=tuple(LIBRARIES)) -> dict[str, Path]:
+    """Compile every library in ``names`` that is not built yet, one ``nvcc``
+    process each, all in parallel; return the path of each library."""
+    targets = {n: _target(n) for n in names}
+    jobs = {}
+    for name, target in targets.items():
+        if target.exists():
+            continue
+        target.parent.mkdir(parents=True, exist_ok=True)
+        tmp = target.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *CUDA_FLAGS, "-o", str(tmp),
+               *(str(KERNELS_DIR / s) for s in LIBRARIES[name])]
+        jobs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                       stderr=subprocess.STDOUT, text=True),
+                      tmp, target)
+    failed = []
+    for name, (proc, tmp, target) in jobs.items():
+        out, _ = proc.communicate()
+        if proc.returncode:
+            failed.append(f"{name}: nvcc exit {proc.returncode}\n{out}")
+        else:
+            os.replace(tmp, target)
+    if failed:
+        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+    return targets
+
+
+def load_library(name: str) -> ctypes.CDLL:
+    """Build the library ``name`` if needed and load it."""
+    return ctypes.CDLL(str(build_libraries((name,))[name]))

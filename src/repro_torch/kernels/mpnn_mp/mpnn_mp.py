@@ -24,7 +24,7 @@ LAUNCHES = 0      # kernel launches since the caller last set it to 0
 @functools.cache
 def library() -> ctypes.CDLL:
     """Build the kernel from ``mpnn_mp.cu`` at the first call and bind it."""
-    lib = _build.load_library("mpnn_mp", "mpnn_mp/mpnn_mp.cu")
+    lib = _build.load_library("mpnn_mp")
     fn = lib.mpnn_message_pass
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_int,
                                            ctypes.c_int, ctypes.c_int,

@@ -1,0 +1,107 @@
+"""Public model API of the port: the language-model entry points of
+``repro/models/api.py`` for the ported (dense, decoder-only) archs.
+
+    params = init_params(cfg, generator, device)   # nested dict of tensors
+    logits, aux = forward(params, cfg, batch)      # full sequence
+    logits, cache = prefill(params, cfg, batch)    # last-position logits
+    logits, cache = decode_step(params, cfg, cache, tokens, cur_len)
+
+batch: {"tokens": (B,S) integers}; positions are 0..S-1. The parameter
+tree has the JAX package's names, shapes and layouts (``tok``,
+``final_norm``, ``stack/uniform`` stacked over layers). The "embeds" and
+"positions" inputs of the stub-frontend archs, the enc-dec branches and
+``loss_fn`` wait for their slices.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import transformer
+from repro_torch.models.layers import (InitMaker, dtype_of, embed,
+                                       embedding_params, rmsnorm,
+                                       rmsnorm_params, unembed)
+
+
+def model_params(mk, cfg: ModelConfig):
+    return {
+        "tok": embedding_params(mk, cfg),
+        "final_norm": rmsnorm_params(mk, cfg.d_model),
+        "stack": transformer.stack_params(mk, cfg),
+    }
+
+
+def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
+                device="cuda"):
+    """Seeded random parameters drawn on ``device`` (default: the card).
+    ``generator`` must live on ``device``; None draws from a generator
+    seeded with 0."""
+    if generator is None:
+        generator = torch.Generator(device=device).manual_seed(0)
+    mk = InitMaker(generator, dtype_of(cfg.param_dtype), device)
+    return model_params(mk, cfg)
+
+
+def _embed_input(params, cfg, batch):
+    h = embed(params["tok"], batch["tokens"], cfg)
+    B, S = h.shape[:2]
+    pos = transformer.positions_for(cfg, B, S, device=h.device)
+    cos, sin = transformer.rope_tables(cfg, pos)
+    return h, cos, sin
+
+
+def forward(params, cfg: ModelConfig, batch):
+    """Full-sequence logits (B,S,V) and the auxiliary loss (0 for dense)."""
+    h, cos, sin = _embed_input(params, cfg, batch)
+    h, _ = transformer.run_stack(params["stack"], h, cfg, cos=cos, sin=sin)
+    h = rmsnorm(params["final_norm"], h, cfg.norm_eps)
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    return unembed(params["tok"], h, cfg), aux
+
+
+def prefill(params, cfg: ModelConfig, batch, reserve: Optional[int] = None):
+    """Full-sequence pass that also builds the decode cache. Returns
+    (last-position logits (B,V), cache). The cache has room for ``reserve``
+    positions (default: the sequence length, as in the JAX package, where
+    ``grow_cache`` pads it afterwards); positions past S are zeros."""
+    h, cos, sin = _embed_input(params, cfg, batch)
+    h, cache = transformer.run_stack(params["stack"], h, cfg, cos=cos,
+                                     sin=sin, collect_cache=True,
+                                     reserve=reserve)
+    h = rmsnorm(params["final_norm"], h[:, -1:], cfg.norm_eps)
+    return unembed(params["tok"], h, cfg)[:, 0], cache
+
+
+def decode_step(params, cfg: ModelConfig, cache, tokens, cur_len):
+    """One decode step. tokens (B,1); cur_len: positions already in the
+    cache (int). Returns (logits (B,V), cache); the cache is updated in
+    place and returned."""
+    B = tokens.shape[0]
+    pos = transformer.positions_for(cfg, B, 1, offset=cur_len,
+                                    device=tokens.device)
+    h = embed(params["tok"], tokens, cfg)
+    cos, sin = transformer.rope_tables(cfg, pos)
+    h, cache = transformer.run_stack(params["stack"], h, cfg, cos=cos,
+                                     sin=sin, cache=cache, cur_len=cur_len)
+    h = rmsnorm(params["final_norm"], h, cfg.norm_eps)
+    return unembed(params["tok"], h, cfg)[:, 0], cache
+
+
+def grow_cache(cfg: ModelConfig, cache, new_capacity: int):
+    """Pad the KV cache with zeros along the sequence axis (axis 2) to
+    ``new_capacity``; a cache that is already large enough is returned as
+    it is."""
+    def pad(t):
+        cap = t.shape[2]
+        if cap >= new_capacity:
+            return t
+        out = t.new_zeros(t.shape[:2] + (new_capacity,) + t.shape[3:])
+        out[:, :, :cap] = t
+        return out
+    return {"k": pad(cache["k"]), "v": pad(cache["v"])}
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda"):
+    return transformer.init_cache(cfg, batch, max_len, device=device)

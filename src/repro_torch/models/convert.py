@@ -1,16 +1,22 @@
-"""Carry the JAX package's stacked surrogate parameters into the port.
+"""Carry the JAX package's parameters into the port.
 
-The input is a flat dict of numpy arrays, e.g.
-``jax.tree.map(np.asarray, repro.apps.electrolyte.Surrogate(cfg).params)``;
-the output is a state dict for ``MPNNEnsemble`` that computes the same
-function.
+``params_from_numpy`` takes the stacked surrogate parameters, a flat dict of
+numpy arrays, e.g.
+``jax.tree.map(np.asarray, repro.apps.electrolyte.Surrogate(cfg).params)``,
+and returns a state dict for ``MPNNEnsemble`` that computes the same
+function. ``lm_params_from_numpy`` takes a language model's nested tree,
+``jax.tree.map(np.asarray, repro.models.api.init_params(cfg, key))``, and
+returns the same tree of tensors for ``repro_torch.models.api``.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from repro_torch.configs.base import ModelConfig
 from repro_torch.configs.mpnn_surrogate import MPNNConfig
+from repro_torch.models import api
+from repro_torch.models.layers import ShapeMaker, dtype_of
 from repro_torch.models.mpnn import param_shapes
 
 
@@ -37,3 +43,42 @@ def params_from_numpy(tree: dict[str, np.ndarray], device) -> dict[str, torch.Te
         if arrays[n].shape != shape:
             raise ValueError(f"{n}: shape {arrays[n].shape}, expected {shape}")
     return {n: torch.tensor(a, device=device) for n, a in arrays.items()}
+
+
+_NUMPY_DTYPE_NAMES = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
+
+
+def tensor_from_numpy(a: np.ndarray, device) -> torch.Tensor:
+    """A numpy array as a tensor on ``device``, bit for bit. bf16 arrays
+    (``ml_dtypes.bfloat16``, which ``torch.from_numpy`` rejects) go through
+    an int16 view. The array is copied: the tensor never shares its
+    memory."""
+    a = np.array(a, order="C")
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(device)
+    return torch.from_numpy(a).to(device)
+
+
+def lm_params_from_numpy(tree: dict, cfg: ModelConfig, device) -> dict:
+    """Check the nested tree's names, shapes and dtypes against the layout
+    of ``cfg`` (dtype ``cfg.param_dtype``) and raise ValueError on any
+    mismatch; return the same tree of tensors on ``device``."""
+    want = api.model_params(ShapeMaker(dtype_of(cfg.param_dtype)), cfg)
+
+    def walk(got, spec, path):
+        if isinstance(spec, dict):
+            if not isinstance(got, dict) or set(got) != set(spec):
+                have = set(got) if isinstance(got, dict) else type(got).__name__
+                raise ValueError(f"{path or '/'}: names {have}, expected "
+                                 f"{set(spec)}")
+            return {k: walk(got[k], spec[k], f"{path}/{k}") for k in spec}
+        shape, dtype = spec
+        a = np.asarray(got)
+        if a.shape != shape:
+            raise ValueError(f"{path}: shape {a.shape}, expected {shape}")
+        if a.dtype.name != _NUMPY_DTYPE_NAMES[dtype]:
+            raise ValueError(f"{path}: dtype {a.dtype.name}, expected "
+                             f"{_NUMPY_DTYPE_NAMES[dtype]}")
+        return tensor_from_numpy(a, device)
+
+    return walk(tree, want, "")

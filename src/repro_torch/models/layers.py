@@ -1,0 +1,145 @@
+"""Shared building blocks of the language models: the parameter makers,
+norms, RoPE and the embedding. The port of ``repro/models/layers.py``.
+
+Every module defines its parameters once, in a ``*_params(mk, cfg)``
+function; the maker ``mk`` decides what comes out: ``InitMaker`` draws
+tensors, ``ShapeMaker`` returns ``(shape, dtype)`` so that
+``convert.lm_params_from_numpy`` can check a tree against the layout.
+"""
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def dtype_of(name: str) -> torch.dtype:
+    return DTYPES[name]
+
+
+class InitMaker:
+    """Draws parameters on ``device`` from ``generator``, with the scales of
+    the JAX package's ``InitMaker.param``: a standard normal truncated to
+    [-2, 2], times ``scale`` or 1/sqrt(fan_in), drawn in f32 and cast."""
+
+    def __init__(self, generator: torch.Generator, dtype: torch.dtype, device):
+        self.generator = generator
+        self.dtype = dtype
+        self.device = torch.device(device)
+
+    def param(self, shape, init="normal", scale=None, fan_in=None):
+        if init == "zeros":
+            return torch.zeros(shape, dtype=self.dtype, device=self.device)
+        if init == "ones":
+            return torch.ones(shape, dtype=self.dtype, device=self.device)
+        if init == "normal":
+            if scale is None:
+                fi = fan_in if fan_in is not None else (
+                    shape[-2] if len(shape) >= 2 else shape[-1])
+                scale = 1.0 / np.sqrt(max(fi, 1))
+            t = torch.empty(shape, dtype=torch.float32, device=self.device)
+            torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0,
+                                        generator=self.generator)
+            return t.mul_(float(scale)).to(self.dtype)
+        raise ValueError(init)
+
+
+class ShapeMaker:
+    """Returns ``(shape, dtype)`` for each parameter."""
+
+    def __init__(self, dtype: torch.dtype):
+        self.dtype = dtype
+
+    def param(self, shape, init="normal", scale=None, fan_in=None):
+        del init, scale, fan_in
+        return tuple(shape), self.dtype
+
+
+# ---------------------------------------------------------------------------
+# Norms: computed in f32, cast back to the input's dtype
+# ---------------------------------------------------------------------------
+
+
+def rmsnorm_params(mk, dim, stacked=()):
+    return {"scale": mk.param(stacked + (dim,), init="ones")}
+
+
+def rmsnorm(params, x, eps):
+    dtype = x.dtype
+    x = x.float()
+    x = x * torch.rsqrt(x.square().mean(-1, keepdim=True) + eps)
+    return (x * params["scale"].float()).to(dtype)
+
+
+def rmsnorm_head(scale, x, eps):
+    """Per-head RMS norm (qwen3 qk-norm): scale shape (head_dim,)."""
+    dtype = x.dtype
+    x = x.float()
+    var = x.square().mean(-1, keepdim=True)
+    return (x * torch.rsqrt(var + eps) * scale.float()).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# Rotary position embeddings, split-half convention
+# ---------------------------------------------------------------------------
+
+
+def rope_freqs(head_dim, theta):
+    exponent = np.arange(0, head_dim, 2, dtype=np.float32) / head_dim
+    return 1.0 / (theta ** exponent)  # (head_dim/2,)
+
+
+def rope_cos_sin(positions, head_dim, theta, mrope_sections=None):
+    """positions (B, S) integers -> cos, sin (B, S, head_dim/2), float32."""
+    if mrope_sections is not None:
+        raise NotImplementedError(
+            "M-RoPE waits for the enc-dec and VLM slice (ROADMAP.md section 1)")
+    inv = torch.as_tensor(rope_freqs(head_dim, theta), dtype=torch.float32,
+                          device=positions.device)
+    ang = positions[..., None].float() * inv
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x, cos, sin):
+    """x (B, S, H, head_dim); cos/sin (B, S, head_dim/2)."""
+    dtype = x.dtype
+    x = x.float()
+    half = x.shape[-1] // 2
+    x1, x2 = x[..., :half], x[..., half:]
+    c, s = cos[:, :, None, :], sin[:, :, None, :]
+    return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# Embedding / unembedding
+# ---------------------------------------------------------------------------
+
+
+def embedding_params(mk, cfg: ModelConfig):
+    p = {"embed": mk.param((cfg.vocab_size, cfg.d_model), scale=1.0,
+                           fan_in=cfg.d_model)}
+    if not cfg.tie_embeddings:
+        p["unembed"] = mk.param((cfg.d_model, cfg.vocab_size))
+    return p
+
+
+def embed(params, tokens, cfg: ModelConfig):
+    h = params["embed"][tokens].to(dtype_of(cfg.compute_dtype))
+    if cfg.emb_scale:
+        h = h * torch.tensor(math.sqrt(cfg.d_model), dtype=h.dtype,
+                             device=h.device)
+    return h
+
+
+def unembed(params, h, cfg: ModelConfig):
+    w = params["embed"].T if cfg.tie_embeddings else params["unembed"]
+    logits = h @ w.to(h.dtype)
+    if cfg.final_logit_softcap:
+        cap = cfg.final_logit_softcap
+        logits = cap * torch.tanh(logits.float() / cap)
+    return logits

@@ -1,0 +1,131 @@
+"""Batched serving engine: prefill + KV-cache decode. The port of
+``repro/serving/engine.py``.
+
+Requests are grouped into equal-prompt-length micro-batches. Two ways to
+drive it, as in the JAX package:
+
+- ``generate``: run a whole batch to completion.
+- the stepwise triple ``prefill_batch`` / ``decode_batch`` /
+  ``gather_rows``, for continuous batching: admit a prefill between other
+  groups' decode steps, stream rows out as they finish, and gather a
+  group's surviving rows into a smaller batch (slot reuse).
+
+The prefill allocates the cache at its full reserve (prompt + generation)
+once and decode writes it in place; the JAX engine pads a prompt-long cache
+in ``grow_cache`` and rebuilds it at every step, with the same values.
+
+Timing: the first ``generate`` call for a (batch, prompt_len, max_new)
+shape, which includes building the CUDA kernel and the libraries' warm-up,
+goes to ``stats["compile_wall"]``; later calls go to ``stats["wall"]``,
+and the clock stops only after ``torch.cuda.synchronize``.
+``throughput()`` is steady-state tokens/s over those warm calls only.
+"""
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import api
+
+
+@dataclass
+class GenState:
+    """One decode group's device state between steps."""
+
+    cache: dict                   # {k, v}: (layers, batch, reserve, KVH, hd)
+    cur: torch.Tensor             # (B, 1) last emitted token per row
+    pos: int                      # tokens already written to the cache
+    reserve: int                  # cache capacity (prompt + generation)
+    padded_b: int                 # current batch dimension
+
+
+class Engine:
+    def __init__(self, cfg: ModelConfig, params, *, max_new: int = 32):
+        self.cfg = cfg
+        self.params = params
+        self.max_new = max_new
+        self.device = params["tok"]["embed"].device
+        self._warm: set = set()   # (B, S, max_new) shapes already run
+        self.stats = {"prefill_calls": 0, "decode_steps": 0,
+                      "tokens_out": 0, "wall": 0.0, "compile_wall": 0.0,
+                      "warm_tokens": 0}
+
+    # -- stepwise API (continuous batching) ---------------------------------
+
+    @torch.inference_mode()
+    def prefill_batch(self, tokens: np.ndarray, *,
+                      reserve: Optional[int] = None) -> tuple:
+        """Prefill one equal-length micro-batch and reserve cache room for
+        generation. tokens (B, S) -> ((B,) first generated tokens, GenState
+        positioned for decode)."""
+        B, S = tokens.shape
+        reserve = reserve if reserve is not None else S + self.max_new
+        batch = {"tokens": torch.as_tensor(np.asarray(tokens, np.int64),
+                                           device=self.device)}
+        logits, cache = api.prefill(self.params, self.cfg, batch,
+                                    reserve=reserve)
+        self.stats["prefill_calls"] += 1
+        first = logits.argmax(-1)
+        state = GenState(cache=cache, cur=first[:, None], pos=S,
+                         reserve=reserve, padded_b=B)
+        self.stats["tokens_out"] += int(B)
+        return first.cpu().numpy().astype(np.int32), state
+
+    @torch.inference_mode()
+    def decode_batch(self, state: GenState) -> np.ndarray:
+        """One decode step for every row of the group; returns the (B,)
+        next tokens and advances the state."""
+        if state.pos >= state.reserve:
+            raise ValueError(
+                f"decode past reserved cache length {state.reserve}")
+        logits, state.cache = api.decode_step(
+            self.params, self.cfg, state.cache, state.cur, state.pos)
+        nxt = logits.argmax(-1)
+        state.cur = nxt[:, None]
+        state.pos += 1
+        self.stats["decode_steps"] += 1
+        self.stats["tokens_out"] += int(state.padded_b)
+        return nxt.cpu().numpy().astype(np.int32)
+
+    def gather_rows(self, state: GenState, rows: Sequence[int]) -> GenState:
+        """Slot reuse: re-pack the group's state down to ``rows`` (engine
+        batch indices). Cache leaves are (layers, batch, ...), so the
+        gather is along axis 1."""
+        idx = torch.as_tensor(list(rows), dtype=torch.long, device=self.device)
+        cache = {k: t.index_select(1, idx) for k, t in state.cache.items()}
+        return GenState(cache=cache, cur=state.cur[idx], pos=state.pos,
+                        reserve=state.reserve, padded_b=len(rows))
+
+    # -- run-to-completion API ----------------------------------------------
+
+    def generate(self, tokens: np.ndarray, *,
+                 max_new: Optional[int] = None) -> np.ndarray:
+        """tokens (B, S) equal-length prompts -> (B, S + max_new)."""
+        t_start = time.perf_counter()
+        max_new = max_new or self.max_new
+        B, S = tokens.shape
+        first, state = self.prefill_batch(tokens, reserve=S + max_new)
+        out = [first]
+        for _ in range(max_new - 1):
+            out.append(self.decode_batch(state))
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        elapsed = time.perf_counter() - t_start
+        key = (B, S, max_new)
+        if key in self._warm:
+            self.stats["wall"] += elapsed
+            self.stats["warm_tokens"] += int(B * max_new)
+        else:
+            self._warm.add(key)
+            self.stats["compile_wall"] += elapsed
+        return np.concatenate([tokens, np.stack(out, axis=1)], axis=1)
+
+    def throughput(self) -> float:
+        """Steady-state tokens/s: warm calls only (the first call per shape
+        is counted in ``stats["compile_wall"]``)."""
+        return self.stats["warm_tokens"] / max(self.stats["wall"], 1e-9)

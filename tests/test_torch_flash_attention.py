@@ -1,0 +1,132 @@
+"""The port's flash attention against the JAX package's: the Pallas kernel
+(interpret mode, block 64 x 64, as tests/test_kernels.py runs it) and its
+jnp oracle, on the six cases of tests/test_kernels.py::test_flash_attention,
+in f32 and bf16, at that test's tolerances. The CUDA kernel itself is held
+against the plain version on a CUDA device only:
+
+    python -m pytest -q -m cuda tests/test_torch_flash_attention.py
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels.flash_attention import flash_attention, ops
+from repro_torch.kernels.flash_attention.ref import attention_reference
+
+# (B, Sq, Sk, H, KVH, hd, causal, window, softcap, q_offset)
+CASES = [
+    (2, 128, 128, 4, 2, 32, True, None, None, 0),
+    (1, 256, 256, 4, 4, 64, True, 64, None, 0),
+    (2, 128, 128, 8, 2, 32, True, None, 50.0, 0),
+    (1, 128, 256, 4, 2, 32, True, None, None, 128),
+    (2, 128, 128, 4, 1, 32, False, None, None, 0),
+    (1, 64, 64, 2, 2, 128, True, 32, 30.0, 0),
+]
+SERVING = (8, 2048, 2048, 16, 8, 128, True, None, None, 0)   # internlm2-1.8b
+# Ragged tiles, a prompt shorter than one tile, decode-like offsets and a
+# window that starts inside a tile: shapes the TPU kernel refuses
+# (Sq % block_q != 0) but the CUDA kernel masks.
+RAGGED = [
+    (2, 100, 100, 4, 2, 64, True, None, None, 0),
+    (1, 7, 300, 4, 4, 128, True, None, None, 293),
+    (3, 200, 200, 8, 1, 128, True, 50, None, 0),
+    (1, 65, 130, 2, 1, 32, False, 33, 20.0, 0),
+]
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}   # tests/test_kernels.py
+
+
+def _inputs(B, Sq, Sk, H, KVH, hd, seed=0):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((B, Sq, H, hd)).astype(np.float32),
+            rng.standard_normal((B, Sk, KVH, hd)).astype(np.float32),
+            rng.standard_normal((B, Sk, KVH, hd)).astype(np.float32))
+
+
+def _kw(case):
+    causal, window, softcap, off = case[6:]
+    return dict(causal=causal, window=window, softcap=softcap, q_offset=off)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("case", CASES, ids=str)
+def test_plain_version_matches_jax_kernel(case, dtype):
+    import jax.numpy as jnp
+    from repro.kernels.flash_attention.flash_attention import \
+        flash_attention as jax_flash
+    from repro.kernels.flash_attention.ref import \
+        attention_reference as jax_reference
+    arrays = _inputs(*case[:6])
+    jq, jk, jv = (jnp.asarray(a, jnp.dtype(dtype)) for a in arrays)
+    tq, tk, tv = (torch.from_numpy(a).to(DTYPES[dtype]) for a in arrays)
+    want = jax_flash(jq, jk, jv, block_q=64, block_k=64, **_kw(case))
+    got = attention_reference(tq, tk, tv, **_kw(case))
+    assert got.dtype == DTYPES[dtype] and got.shape == tq.shape
+    assert torch.equal(ops.attention(tq, tk, tv, **_kw(case)), got)
+    tol = TOL[DTYPES[dtype]]
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32),
+                               rtol=tol, atol=tol)
+    np.testing.assert_allclose(
+        got.float().numpy(),
+        np.asarray(jax_reference(jq, jk, jv, **_kw(case)), np.float32),
+        rtol=tol, atol=tol)
+
+
+def test_dispatch_on_cpu():
+    q, k, v = (torch.from_numpy(a) for a in _inputs(1, 64, 64, 2, 1, 32))
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.attention(q, k, v, impl="kernel")
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention.flash_attention_cuda(q, k, v)
+    with pytest.raises(ValueError, match="impl"):
+        ops.attention(q, k, v, impl="pallas")
+    assert torch.equal(ops.attention(q, k, v, impl="ref"),
+                       attention_reference(q, k, v))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("case", CASES + RAGGED + [SERVING], ids=str)
+def test_kernel_matches_plain_version(cuda, case, dtype):
+    q, k, v = (torch.from_numpy(a).to(cuda, DTYPES[dtype])
+               for a in _inputs(*case[:6]))
+    before = flash_attention.LAUNCHES
+    got = ops.attention(q, k, v, impl="kernel", **_kw(case))
+    want = attention_reference(q, k, v, **_kw(case))
+    torch.cuda.synchronize()
+    assert flash_attention.LAUNCHES == before + 1
+    assert got.dtype == q.dtype and got.shape == q.shape
+    tol = TOL[DTYPES[dtype]]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_kernel_reads_strided_inputs(cuda):
+    """q, k, v as head slices of one packed (B,S,H+2KVH,hd) projection."""
+    B, S, H, KVH, hd = 2, 192, 8, 2, 128
+    packed = torch.randn(B, S, H + 2 * KVH, hd, device=cuda,
+                         generator=torch.Generator(cuda).manual_seed(0))
+    q, k, v = packed[:, :, :H], packed[:, :, H:H + KVH], packed[:, :, H + KVH:]
+    got = flash_attention.flash_attention_cuda(q, k, v, causal=True)
+    want = attention_reference(q, k, v, causal=True)
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.cuda
+def test_kernel_refuses_what_it_does_not_take(cuda):
+    q = torch.zeros(1, 64, 2, 96, device=cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_attention.flash_attention_cuda(q, q, q)
+    q = torch.zeros(1, 64, 2, 64, device=cuda, dtype=torch.float16)
+    with pytest.raises(TypeError, match="dtype"):
+        flash_attention.flash_attention_cuda(q, q, q)
