@@ -29,6 +29,23 @@ Phases:
      count is set to 0 just before this phase and read just after it.
   8. Report: time the flash kernel, its plain version and PyTorch's
      ``scaled_dot_product_attention`` at the serving shape, beside the bound.
+  9. Hold the Mamba2 SSD scan kernel against its plain version
+     (``ssd_chunked``) with a random initial state on the three shapes of
+     the JAX kernel tests, in f32 and bf16, and at zamba2-1.2b's serving
+     shape (8, 2048, 64 heads, P=64, G=1, N=64, Q=128) in bf16 with a bf16
+     log decay, as the model passes it; and the flash kernel at zamba2's
+     attention shape (8, 2048, 32 heads, 32 KV heads, hd 64) in bf16.
+ 10. Build zamba2-1.2b at its published widths and depth (38 Mamba2 layers,
+     d_model 2048, one shared attention block after every 6, vocab 32000)
+     with seeded random f32 weights drawn on the card, and hold one prefill
+     (B=2, S=1024) through both kernels against the same prefill through
+     both plain versions: last-position logits, conv and SSM states and the
+     KV cache.
+ 11. Serve: answer 3 requests of 8 prompts x 2048 tokens, 32 new tokens
+     each, through ``Engine`` with zamba2-1.2b in bf16. Both kernels' launch
+     counts are set to 0 just before this phase and read just after it.
+ 12. Report: time the SSD kernel and its plain version at the serving shape,
+     and the flash kernel at zamba2's attention shape, beside the bounds.
 
 The kernels are built first, one ``nvcc`` per source, all in parallel.
 
@@ -58,6 +75,9 @@ from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import attention_reference  # noqa: E402
+from repro_torch.kernels.mamba2_ssd import mamba2_ssd  # noqa: E402
+from repro_torch.kernels.mamba2_ssd import ops as ssd_ops  # noqa: E402
+from repro_torch.kernels.mamba2_ssd.ref import ssd_chunked  # noqa: E402
 from repro_torch.kernels.mpnn_mp import mpnn_mp, ops  # noqa: E402
 from repro_torch.kernels.mpnn_mp.ref import message_pass_reference  # noqa: E402
 from repro_torch.models import api as lm_api  # noqa: E402
@@ -98,11 +118,31 @@ FA_SERVING = (SERVE_BATCH, SERVE_PROMPT, SERVE_PROMPT, 16, 8, 128, True,
 # in summation order; in bf16 both round an f32 result to bf16.
 FA_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 PREFILL_SHAPE = (2, 1024)
-# f32 on both sides, TF32 off: the prefills differ only in the attention's
-# summation order (about 1e-7 relative per layer), which 24 layers of random
-# weights may amplify; 1e-3 leaves that 100x room while a real fault moves
-# the O(1) logits by O(1).
+# f32 on both sides, TF32 off: the prefills differ only in the kernels'
+# summation orders (about 1e-7 relative per op), which many layers of random
+# weights amplify: internlm2's 24 layers stay near 1e-5, zamba2's 38 Mamba2
+# recurrences near 1e-3 on the O(10) SSM states, as two correct plain scan
+# orders (ssd_chunked, ssd_naive) also do. A real fault moves the O(1)
+# logits and states by O(1).
 PREFILL_TOL = 1e-3
+
+HYBRID_ARCH = "zamba2-1.2b"
+# (B, L, H, P, G, N, Q): tests/test_kernels.py::test_mamba2_ssd_kernel
+SSD_CASES = [
+    (2, 256, 4, 32, 1, 16, 64),
+    (1, 128, 8, 64, 2, 32, 128),
+    (2, 256, 4, 32, 4, 16, 64),
+]
+# The scan of one zamba2-1.2b Mamba2 layer at the serving batch: d_inner
+# 4096 in 64 heads of P=64, one B/C group of N=64, chunk 128.
+SSD_SERVING = (SERVE_BATCH, SERVE_PROMPT, 64, 64, 1, 64, 128)
+# The JAX kernel test's tolerances: in f32 the kernel and ssd_chunked sum in
+# other orders; in bf16 both round an f32 result to bf16, so they may differ
+# by one bf16 ulp (2**-8 relative), inside the 1e-1 relative term.
+SSD_TOL = {torch.float32: 1e-3, torch.bfloat16: 1e-1}
+# zamba2-1.2b's shared attention block at the serving batch: MHA, hd 64.
+FA_HYBRID = (SERVE_BATCH, SERVE_PROMPT, SERVE_PROMPT, 32, 32, 64, True,
+             None, None, 0)
 
 
 def log(msg: str) -> None:
@@ -318,31 +358,55 @@ def phase_lm_prefill() -> None:
         want, want_cache = lm_api.prefill(
             params, cfg.replace(attn_impl="ref"), {"tokens": tokens})
     torch.cuda.synchronize()
+    hold_prefill(B, S, cfg, got, want, got_cache, want_cache)
+
+
+def hold_prefill(B, S, cfg, got, want, got_cache, want_cache) -> None:
+    """Kernel prefill against plain prefill: logits and every cache leaf."""
     check(got.shape == (B, cfg.vocab_size) and bool(torch.isfinite(got).all()),
           f"prefill logits {tuple(got.shape)} not finite or misshapen")
     for what, a, b in (("logits", got, want),
-                       ("K cache", got_cache["k"], want_cache["k"]),
-                       ("V cache", got_cache["v"], want_cache["v"])):
-        err = (a - b).abs().max().item()
-        check(torch.allclose(a, b, rtol=PREFILL_TOL, atol=PREFILL_TOL),
+                       *((f"cache {path}", a, b) for (path, a), (_, b) in
+                         zip(_named_leaves(got_cache),
+                             _named_leaves(want_cache)))):
+        err = (a.float() - b.float()).abs().max().item()
+        check(torch.allclose(a.float(), b.float(), rtol=PREFILL_TOL,
+                             atol=PREFILL_TOL),
               f"f32 prefill {what}: kernel vs plain max abs err {err}")
         log(f"  B={B} S={S} {what} {tuple(a.shape)}: kernel vs plain max abs "
             f"err {err:.3e} (rtol = atol = {PREFILL_TOL:.0e})")
 
 
+def _named_leaves(tree, path=""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _named_leaves(v, f"{path}/{k}")
+        else:
+            yield f"{path}/{k}", v
+
+
 def _leaves(tree):
-    for v in tree.values():
-        yield from (_leaves(v) if isinstance(v, dict) else (v,))
+    for _, v in _named_leaves(tree):
+        yield v
 
 
 def phase_lm_serve() -> dict:
-    log(f"phase 7: serve {SERVE_REQUESTS} requests of {SERVE_BATCH} x "
-        f"{SERVE_PROMPT} tokens, {SERVE_MAX_NEW} new, {LM_ARCH} in bf16")
     cfg = get_config(LM_ARCH).replace(attn_impl="kernel")
-    gen = torch.Generator(device=DEV).manual_seed(SEED + 5)
+    return serve(7, cfg, SEED + 5,
+                 {"flash_attention": (flash_attention, cfg.num_layers)})
+
+
+def serve(phase: int, cfg, seed: int, kernels: dict) -> dict:
+    """Answer SERVE_REQUESTS requests through ``Engine``. ``kernels`` maps a
+    kernel's name to (its module, launches per request); every count is set
+    to 0 just before the requests and must read REQUESTS x per request just
+    after them."""
+    log(f"phase {phase}: serve {SERVE_REQUESTS} requests of {SERVE_BATCH} x "
+        f"{SERVE_PROMPT} tokens, {SERVE_MAX_NEW} new, {cfg.name} in bf16")
+    gen = torch.Generator(device=DEV).manual_seed(seed)
     engine = Engine(cfg, lm_api.init_params(cfg, gen, device=DEV),
                     max_new=SERVE_MAX_NEW)
-    rng = np.random.default_rng(SEED + 5)
+    rng = np.random.default_rng(seed)
     times = {"prefill": [], "decode": []}
     bad_logits = torch.zeros((), dtype=torch.long, device=DEV)
 
@@ -367,7 +431,8 @@ def phase_lm_serve() -> dict:
     lm_api.prefill, lm_api.decode_step = finite(plain[0]), finite(plain[1])
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    flash_attention.LAUNCHES = 0
+    for module, _ in kernels.values():
+        module.LAUNCHES = 0
     try:
         for r in range(SERVE_REQUESTS):
             times["prefill"].clear()
@@ -389,18 +454,20 @@ def phase_lm_serve() -> dict:
                 f"row 0 tail {new[0, -6:].tolist()}")
     finally:
         lm_api.prefill, lm_api.decode_step = plain
-    launches = flash_attention.LAUNCHES
-    per_request = cfg.num_layers
+    launches = {name: module.LAUNCHES for name, (module, _) in kernels.items()}
     check(bad_logits.item() == 0, f"{bad_logits.item()} non-finite logits")
-    log(f"  all logits finite; flash_attention launches {launches} "
-        f"({per_request} per request); steady-state "
-        f"{engine.throughput():.1f} tok/s over {SERVE_REQUESTS - 1} warm "
-        f"requests; peak device memory "
+    log(f"  all logits finite; launches " + ", ".join(
+            f"{name} {launches[name]} ({per} per request)"
+            for name, (_, per) in kernels.items())
+        + f"; steady-state {engine.throughput():.1f} tok/s over "
+        f"{SERVE_REQUESTS - 1} warm requests; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    check(launches == SERVE_REQUESTS * per_request,
-          f"flash_attention launched {launches} times, expected "
-          f"{SERVE_REQUESTS * per_request}")
-    return {"launches": launches, "launches_per_request": per_request}
+    for name, (_, per) in kernels.items():
+        check(launches[name] == SERVE_REQUESTS * per,
+              f"{name} launched {launches[name]} times, expected "
+              f"{SERVE_REQUESTS * per}")
+    return {name: {"launches": launches[name], "launches_per_request": per}
+            for name, (_, per) in kernels.items()}
 
 
 def live_pairs(Sq, Sk, causal, window, q_offset) -> int:
@@ -413,8 +480,13 @@ def live_pairs(Sq, Sk, causal, window, q_offset) -> int:
 
 def phase_flash_report() -> dict:
     log("phase 8: time flash_attention at the serving shape (bf16)")
-    gen = torch.Generator(device=DEV).manual_seed(SEED + 6)
-    (q, k, v), kw = fa_inputs(FA_SERVING, torch.bfloat16, gen)
+    return time_flash(FA_SERVING, SEED + 6)
+
+
+def time_flash(case, seed: int) -> dict:
+    """Kernel, plain version and SDPA at ``case`` in bf16, beside the bound."""
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    (q, k, v), kw = fa_inputs(case, torch.bfloat16, gen)
     ms = median_ms(lambda: fa_ops.attention(q, k, v, impl="kernel", **kw))
     plain_ms = median_ms(lambda: attention_reference(q, k, v, **kw))
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
@@ -426,7 +498,7 @@ def phase_flash_report() -> dict:
                                         kw["window"], kw["q_offset"])
     bytes_ms = moved / HBM_BYTES_PER_S * 1e3
     flops_ms = flops / BF16_FLOP_PER_S * 1e3
-    log(f"  kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+    log(f"  {case[:6]}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
         f"scaled_dot_product_attention {library_ms:.3f} ms; bound "
         f"{max(bytes_ms, flops_ms):.3f} ms ({flops / 1e9:.1f} GFLOP at "
         f"{BF16_FLOP_PER_S / 1e12:.0f} TFLOP/s = {flops_ms:.3f} ms; "
@@ -435,8 +507,136 @@ def phase_flash_report() -> dict:
     return {"ms": ms, "plain_ms": plain_ms,
             "bound_ms": max(bytes_ms, flops_ms),
             "bound_by": "bytes" if bytes_ms >= flops_ms else "operations",
-            "library_ms": library_ms, "shape": list(FA_SERVING[:6]),
+            "library_ms": library_ms, "shape": list(case[:6]),
             "dtype": "bfloat16"}
+
+
+def ssd_inputs(case, dtype, gen, la_dtype=torch.float32):
+    """x, b, c in ``dtype``; log_a = -0.3|normal| (as the JAX kernel test
+    draws it) in ``la_dtype``; a random f32 initial state."""
+    B, L, H, P, G, N, _ = case
+    x = torch.randn(B, L, H, P, generator=gen, device=DEV, dtype=dtype)
+    la = (torch.randn(B, L, H, generator=gen, device=DEV).abs_()
+          .mul_(-0.3).to(la_dtype))
+    b = torch.randn(B, L, G, N, generator=gen, device=DEV, dtype=dtype)
+    c = torch.randn(B, L, G, N, generator=gen, device=DEV, dtype=dtype)
+    s0 = torch.randn(B, H, P, N, generator=gen, device=DEV)
+    return x, la, b, c, s0
+
+
+def hold_ssd(case, dtype, gen, la_dtype=torch.float32) -> float:
+    """Kernel against ssd_chunked on the same inputs; max abs error of y and
+    of the final state."""
+    x, la, b, c, s0 = ssd_inputs(case, dtype, gen, la_dtype)
+    Q = case[-1]
+    y, s = ssd_ops.ssd(x, la, b, c, s0, impl="kernel", chunk=Q)
+    y_want, s_want = ssd_chunked(x, la, b, c, s0, chunk=Q)
+    torch.cuda.synchronize()
+    check(y.dtype == x.dtype and y.shape == x.shape and s.dtype == torch.float32
+          and s.shape == s0.shape,
+          f"mamba2_ssd outputs {y.dtype} {tuple(y.shape)}, {s.dtype} "
+          f"{tuple(s.shape)}")
+    tol = SSD_TOL[dtype]
+    errs = []
+    for what, a, b_ in (("y", y, y_want), ("state", s, s_want)):
+        err = (a.float() - b_.float()).abs().max().item()
+        check(torch.allclose(a.float(), b_.float(), rtol=tol, atol=tol),
+              f"mamba2_ssd {case} {dtype} {what}: max abs err {err}")
+        errs.append(err)
+    log(f"  mamba2_ssd {case} {str(dtype):14s} log_a {str(la_dtype):14s} max "
+        f"abs err y {errs[0]:.3e} (max |y| {y_want.float().abs().max().item():.1f}),"
+        f" state {errs[1]:.3e} (rtol = atol = {tol:.0e})")
+    return max(errs)
+
+
+def phase_ssd_kernels() -> dict:
+    log("phase 9: hold mamba2_ssd against ssd_chunked, and flash_attention at "
+        f"{HYBRID_ARCH}'s attention shape")
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 7)
+    for dtype in (torch.float32, torch.bfloat16):
+        for case in SSD_CASES:
+            hold_ssd(case, dtype, gen)
+    err = hold_ssd(SSD_SERVING, torch.bfloat16, gen, la_dtype=torch.bfloat16)
+    flash_err = hold_flash(FA_HYBRID, torch.bfloat16, gen)
+    return {"max_abs_err": err}, flash_err
+
+
+def phase_hybrid_prefill() -> None:
+    log(f"phase 10: full-width {HYBRID_ARCH} in f32, prefill through both "
+        "kernels against prefill through both plain versions")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_config(HYBRID_ARCH).replace(param_dtype="float32",
+                                          compute_dtype="float32",
+                                          attn_impl="kernel")
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 8)
+    params = lm_api.init_params(cfg, gen, device=DEV)
+    torch.cuda.synchronize()
+    n = sum(t.numel() for t in _leaves(params))
+    log(f"  {cfg.num_layers} Mamba2 layers (shared attention after every "
+        f"{cfg.attn_every}), d_model {cfg.d_model}, {cfg.num_heads} heads of "
+        f"{cfg.resolved_head_dim}, SSM state {cfg.ssm_state}, vocab "
+        f"{cfg.vocab_size}: {n / 1e9:.3f} G parameters drawn on the card in "
+        f"{time.perf_counter() - t0:.1f} s")
+    B, S = PREFILL_SHAPE
+    tokens = torch.as_tensor(
+        lm_tokens(np.random.default_rng(SEED + 8), B, S, cfg.vocab_size),
+        device=DEV)
+    ssd0, fa0 = mamba2_ssd.LAUNCHES, flash_attention.LAUNCHES
+    with torch.inference_mode():
+        got, got_cache = lm_api.prefill(params, cfg, {"tokens": tokens})
+        ssd1, fa1 = mamba2_ssd.LAUNCHES, flash_attention.LAUNCHES
+        want, want_cache = lm_api.prefill(
+            params, cfg.replace(attn_impl="ref"), {"tokens": tokens})
+    torch.cuda.synchronize()
+    groups = cfg.num_layers // cfg.attn_every
+    check(ssd1 - ssd0 == cfg.num_layers and fa1 - fa0 == groups
+          and mamba2_ssd.LAUNCHES == ssd1 and flash_attention.LAUNCHES == fa1,
+          f"prefill launches: mamba2_ssd {ssd1 - ssd0}, flash {fa1 - fa0}; "
+          f"plain prefill {mamba2_ssd.LAUNCHES - ssd1}, "
+          f"{flash_attention.LAUNCHES - fa1}")
+    hold_prefill(B, S, cfg, got, want, got_cache, want_cache)
+
+
+def phase_hybrid_serve() -> dict:
+    cfg = get_config(HYBRID_ARCH).replace(attn_impl="kernel")
+    groups = cfg.num_layers // cfg.attn_every
+    return serve(11, cfg, SEED + 9,
+                 {"mamba2_ssd": (mamba2_ssd, cfg.num_layers),
+                  "flash_attention": (flash_attention, groups)})
+
+
+def phase_ssd_report() -> tuple[dict, dict]:
+    log(f"phase 12: time mamba2_ssd at the serving shape {SSD_SERVING} (bf16, "
+        f"bf16 log decay), and flash_attention at {FA_HYBRID[:6]}")
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 10)
+    case = SSD_SERVING
+    x, la, b, c, s0 = ssd_inputs(case, torch.bfloat16, gen, torch.bfloat16)
+    Q = case[-1]
+    ms = median_ms(lambda: ssd_ops.ssd(x, la, b, c, s0, impl="kernel", chunk=Q))
+    plain_ms = median_ms(lambda: ssd_chunked(x, la, b, c, s0, chunk=Q))
+    B, L, H, P, G, N, _ = case
+    y_bytes = x.numel() * x.element_size()
+    s_bytes = s0.numel() * s0.element_size()
+    moved = sum(t.numel() * t.element_size() for t in (x, la, b, c, s0)) \
+        + y_bytes + s_bytes
+    # per (b, h, chunk): C B^T and M x over the lower triangle of the Q x Q
+    # tile (M is 0 above it), C S^T and the rank-Q state update
+    flops = 2 * B * H * (L // Q) * (Q * (Q + 1) // 2 * (N + P) + 2 * Q * P * N)
+    bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+    flops_ms = flops / BF16_FLOP_PER_S * 1e3
+    log(f"  kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, library: none; bound "
+        f"{max(bytes_ms, flops_ms):.3f} ms ({moved / 2**20:.0f} MiB at "
+        f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s = {bytes_ms:.3f} ms; "
+        f"{flops / 1e9:.1f} GFLOP at {BF16_FLOP_PER_S / 1e12:.0f} TFLOP/s = "
+        f"{flops_ms:.3f} ms, at {F32_FLOP_PER_S / 1e12:.0f} TFLOP/s f32 = "
+        f"{flops / F32_FLOP_PER_S * 1e3:.3f} ms)")
+    ssd = {"ms": ms, "plain_ms": plain_ms,
+           "bound_ms": max(bytes_ms, flops_ms),
+           "bound_by": "bytes" if bytes_ms >= flops_ms else "operations",
+           "library_ms": None, "shape": list(case), "dtype": "bfloat16"}
+    return ssd, time_flash(FA_HYBRID, SEED + 11)
 
 
 def main() -> None:
@@ -464,9 +664,23 @@ def main() -> None:
     flash = phase_flash_kernels()
     phase_lm_prefill()
     torch.cuda.empty_cache()
-    flash.update(phase_lm_serve())
+    lm_launches = phase_lm_serve()["flash_attention"]
     torch.cuda.empty_cache()
     flash.update(phase_flash_report())
+
+    ssd, flash["max_abs_err_hybrid"] = phase_ssd_kernels()
+    phase_hybrid_prefill()
+    torch.cuda.empty_cache()
+    hybrid = phase_hybrid_serve()
+    ssd.update(hybrid["mamba2_ssd"])
+    # the flash kernel runs on both serving paths; each was counted alone
+    flash["launches_by_path"] = {LM_ARCH: lm_launches,
+                                 HYBRID_ARCH: hybrid["flash_attention"]}
+    flash["launches"] = sum(v["launches"]
+                            for v in flash["launches_by_path"].values())
+    torch.cuda.empty_cache()
+    ssd_times, flash["hybrid_shape"] = phase_ssd_report()
+    ssd.update(ssd_times)
 
     card = subprocess.run(
         ["nvidia-smi", "--id=0", "--query-gpu=name,power.limit",
@@ -481,7 +695,11 @@ def main() -> None:
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/flash_attention/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/flash_attention.py:91",
-        **flash}]}))
+        **flash}, {
+        "name": "mamba2_ssd", "route": "cuda",
+        "source": "src/repro_torch/kernels/mamba2_ssd/mamba2_ssd.cu",
+        "replaces": "src/repro/kernels/mamba2_ssd/mamba2_ssd.py:74",
+        **ssd}]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

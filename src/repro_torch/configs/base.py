@@ -112,12 +112,11 @@ ARCH_IDS = [
     "seamless-m4t-medium",
 ]
 
-PORTED = ("granite-20b", "qwen3-8b", "internlm2-1.8b")
+PORTED = ("granite-20b", "qwen3-8b", "internlm2-1.8b", "zamba2-1.2b")
 
 # Where each arch not yet ported waits (ROADMAP.md section 1).
 PENDING = {
     "gemma2-2b": "the gemma2 local/global stack",
-    "zamba2-1.2b": "the Mamba2 slice (ssd_pallas)",
     "kimi-k2-1t-a32b": "the MoE slice (gmm)",
     "llama4-scout-17b-a16e": "the MoE slice (gmm)",
     "rwkv6-3b": "the RWKV6 slice (wkv6_pallas)",

@@ -26,6 +26,7 @@ CUDA_FLAGS = ["-O3", "-std=c++17", "-gencode=arch=compute_90a,code=sm_90a",
 LIBRARIES = {
     "mpnn_mp": ("mpnn_mp/mpnn_mp.cu",),
     "flash_attention": ("flash_attention/flash_attention.cu",),
+    "mamba2_ssd": ("mamba2_ssd/mamba2_ssd.cu",),
 }
 
 

@@ -1,5 +1,6 @@
 """Public model API of the port: the language-model entry points of
-``repro/models/api.py`` for the ported (dense, decoder-only) archs.
+``repro/models/api.py`` for the ported decoder-only archs (the dense stack
+and the zamba2 hybrid stack).
 
     params = init_params(cfg, generator, device)   # nested dict of tensors
     logits, aux = forward(params, cfg, batch)      # full sequence
@@ -8,7 +9,9 @@
 
 batch: {"tokens": (B,S) integers}; positions are 0..S-1. The parameter
 tree has the JAX package's names, shapes and layouts (``tok``,
-``final_norm``, ``stack/uniform`` stacked over layers). The "embeds" and
+``final_norm``, ``stack/uniform`` stacked over layers; for zamba2
+``stack/mamba_main`` stacked over (groups, attn_every), ``stack/mamba_tail``
+and ``stack/shared_attn``). The "embeds" and
 "positions" inputs of the stub-frontend archs, the enc-dec branches and
 ``loss_fn`` wait for their slices.
 """
@@ -90,9 +93,10 @@ def decode_step(params, cfg: ModelConfig, cache, tokens, cur_len):
 
 
 def grow_cache(cfg: ModelConfig, cache, new_capacity: int):
-    """Pad the KV cache with zeros along the sequence axis (axis 2) to
-    ``new_capacity``; a cache that is already large enough is returned as
-    it is."""
+    """Pad the attention KV cache with zeros along the sequence axis (axis 2)
+    to ``new_capacity``; a cache that is already large enough is returned as
+    it is. The Mamba2 conv and SSM states do not grow with the sequence and
+    pass through."""
     def pad(t):
         cap = t.shape[2]
         if cap >= new_capacity:
@@ -100,7 +104,13 @@ def grow_cache(cfg: ModelConfig, cache, new_capacity: int):
         out = t.new_zeros(t.shape[:2] + (new_capacity,) + t.shape[3:])
         out[:, :, :cap] = t
         return out
-    return {"k": pad(cache["k"]), "v": pad(cache["v"])}
+
+    def pad_kv(kv):
+        return {"k": pad(kv["k"]), "v": pad(kv["v"])}
+
+    if cfg.family == "hybrid":
+        return {"mamba": cache["mamba"], "attn": pad_kv(cache["attn"])}
+    return pad_kv(cache)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda"):

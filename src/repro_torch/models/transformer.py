@@ -1,12 +1,12 @@
-"""Decoder-only transformer stack: the port of the uniform dense stack of
-``repro/models/transformer.py``.
+"""Decoder-only transformer stacks: the port of the uniform dense stack and
+the zamba2 hybrid stack of ``repro/models/transformer.py``.
 
 The JAX package scans stacked (L, ...) parameters with ``lax.scan``; the port
 keeps the same stacked layout and loops over layers in Python. The same
-block serves the full-sequence forward (no cache), prefill (collect the
+blocks serve the full-sequence forward (no cache), prefill (collect the
 cache) and decode (write the cache at ``cur_len`` and attend over it).
-The gemma2 local/global stack, zamba2, RWKV6, MoE and enc-dec stacks wait
-for their slices (ROADMAP.md section 1).
+The gemma2 local/global stack, RWKV6, MoE and enc-dec stacks wait for their
+slices (ROADMAP.md section 1).
 """
 from __future__ import annotations
 
@@ -14,6 +14,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import mamba2
 from repro_torch.models.layers import rmsnorm, rmsnorm_params, rope_cos_sin
 from repro_torch.models.mlp import mlp, mlp_params
 
@@ -22,7 +23,6 @@ def check_supported(cfg: ModelConfig) -> None:
     """Raise NotImplementedError for a config whose layers are not ported."""
     pending = [
         (cfg.rwkv, "RWKV6 stack", "the RWKV6 slice"),
-        (cfg.family == "hybrid", "zamba2 stack", "the Mamba2 slice"),
         (cfg.is_moe, "MoE FFN", "the MoE slice"),
         (cfg.is_encdec, "enc-dec stack", "the enc-dec and VLM slice"),
         (cfg.mrope_sections is not None, "M-RoPE", "the enc-dec and VLM slice"),
@@ -45,8 +45,23 @@ def dense_block_params(mk, cfg: ModelConfig, stacked=()):
     }
 
 
+def mamba_block_params(mk, cfg: ModelConfig, stacked=()):
+    return {
+        "ln": rmsnorm_params(mk, cfg.d_model, stacked),
+        "mamba": mamba2.mamba_params(mk, cfg, stacked),
+    }
+
+
 def stack_params(mk, cfg: ModelConfig):
     check_supported(cfg)
+    if cfg.family == "hybrid":
+        ae = max(cfg.attn_every, 1)
+        groups, tail = divmod(cfg.num_layers, ae)
+        p = {"mamba_main": mamba_block_params(mk, cfg, stacked=(groups, ae)),
+             "shared_attn": dense_block_params(mk, cfg)}
+        if tail:
+            p["mamba_tail"] = mamba_block_params(mk, cfg, stacked=(tail,))
+        return p
     return {"uniform": dense_block_params(mk, cfg, stacked=(cfg.num_layers,))}
 
 
@@ -70,6 +85,12 @@ def apply_dense_block(p, h, cfg: ModelConfig, *, cos, sin, window=None,
     return h, new_cache
 
 
+def apply_mamba_block(p, h, cfg: ModelConfig, cache=None):
+    m_out, new_cache = mamba2.mamba_block(
+        p["mamba"], rmsnorm(p["ln"], h, cfg.norm_eps), cfg, cache)
+    return h + m_out, new_cache
+
+
 def _layer(tree, i):
     return {k: _layer(v, i) if isinstance(v, dict) else v[i]
             for k, v in tree.items()}
@@ -83,26 +104,79 @@ def run_stack(params, h, cfg: ModelConfig, *, cos, sin, cache=None,
     for ``reserve`` positions (default: the sequence length; zeros past it).
     cache: a stacked cache to decode against; it is written in place."""
     check_supported(cfg)
-    blocks = params["uniform"]
-    B, S = h.shape[:2]
-    out_cache = None
     if collect_cache:
-        out_cache = init_cache(cfg, B, max(reserve or S, S), device=h.device)
+        B, S = h.shape[:2]
+        cache = init_cache(cfg, B, max(reserve or S, S), device=h.device)
+    kw = dict(cos=cos, sin=sin, cur_len=cur_len, collect_cache=collect_cache)
+    if cfg.family == "hybrid":
+        return _run_zamba_stack(params, h, cfg, cache, **kw), cache
     for i in range(cfg.num_layers):
-        layer_cache = None
-        if cache is not None:
-            layer_cache = {"k": cache["k"][i], "v": cache["v"][i]}
-        h, new_c = apply_dense_block(
-            _layer(blocks, i), h, cfg, cos=cos, sin=sin, cache=layer_cache,
-            cur_len=cur_len, collect_cache=collect_cache)
-        if collect_cache:
-            out_cache["k"][i, :, :S] = new_c["k"]
-            out_cache["v"][i, :, :S] = new_c["v"]
-    return h, (out_cache if collect_cache else cache)
+        h = _attention_layer(_layer(params["uniform"], i), h, cfg, cache, i,
+                             **kw)
+    return h, cache
+
+
+def _attention_layer(p, h, cfg, kv, i, *, cos, sin, cur_len, collect_cache):
+    """One dense block against layer ``i`` of the stacked KV cache ``kv``
+    (None: no cache). Prefill writes the fresh K/V at positions [0, S);
+    decode writes the new position in place."""
+    layer_kv = None
+    if kv is not None and not collect_cache:
+        layer_kv = {"k": kv["k"][i], "v": kv["v"][i]}
+    h, new_kv = apply_dense_block(p, h, cfg, cos=cos, sin=sin, cache=layer_kv,
+                                  cur_len=cur_len, collect_cache=collect_cache)
+    if collect_cache:
+        S = h.shape[1]
+        kv["k"][i, :, :S] = new_kv["k"]
+        kv["v"][i, :, :S] = new_kv["v"]
+    return h
+
+
+def _run_zamba_stack(params, h, cfg, cache, **kw):
+    """zamba2: groups of ``attn_every`` Mamba2 blocks, each followed by the
+    SHARED attention block (same params, per-application KV cache), then a
+    tail of Mamba2 blocks. Cache: {"mamba": {conv, ssm} stacked over the
+    num_layers Mamba2 layers, "attn": {k, v} stacked over the groups}.
+
+    Prefill hands every Mamba2 block its zero states, as the JAX package
+    does, so a prompt longer than one token runs the SSD scan (not the
+    decode step); the block's new states are written into the cache in
+    place, in prefill and in decode."""
+    ae = max(cfg.attn_every, 1)
+    groups, tail = divmod(cfg.num_layers, ae)
+
+    def mamba(p, h, layer):
+        if cache is None:
+            return apply_mamba_block(p, h, cfg)[0]
+        m = cache["mamba"]
+        h, new = apply_mamba_block(
+            p, h, cfg, {"conv": m["conv"][layer], "ssm": m["ssm"][layer]})
+        m["conv"][layer].copy_(new["conv"])
+        m["ssm"][layer].copy_(new["ssm"])
+        return h
+
+    kv = None if cache is None else cache["attn"]
+    for g in range(groups):
+        group_p = _layer(params["mamba_main"], g)
+        for i in range(ae):
+            h = mamba(_layer(group_p, i), h, g * ae + i)
+        h = _attention_layer(params["shared_attn"], h, cfg, kv, g, **kw)
+    for t in range(tail):
+        h = mamba(_layer(params["mamba_tail"], t), h, groups * ae + t)
+    return h
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda"):
-    """Decode cache for the decoder stack, stacked over layers."""
+    """Decode cache for the decoder stack, stacked over layers (hybrid: the
+    Mamba2 states over layers and the shared block's K/V over groups)."""
+    if cfg.family == "hybrid":
+        groups = cfg.num_layers // max(cfg.attn_every, 1)
+        return {
+            "mamba": mamba2.init_mamba_cache(cfg, batch, cfg.num_layers,
+                                             device=device),
+            "attn": attn.init_kv_cache(cfg, batch, max_len, groups,
+                                       device=device),
+        }
     return attn.init_kv_cache(cfg, batch, max_len, cfg.num_layers,
                               device=device)
 

@@ -37,7 +37,10 @@ from repro_torch.models import api
 class GenState:
     """One decode group's device state between steps."""
 
-    cache: dict                   # {k, v}: (layers, batch, reserve, KVH, hd)
+    cache: dict                   # api.init_cache's tree; every leaf is
+                                  # (layers, batch, ...): dense {k, v}
+                                  # (layers, B, reserve, KVH, hd); zamba2
+                                  # {mamba: {conv, ssm}, attn: {k, v}}
     cur: torch.Tensor             # (B, 1) last emitted token per row
     pos: int                      # tokens already written to the cache
     reserve: int                  # cache capacity (prompt + generation)
@@ -94,10 +97,14 @@ class Engine:
 
     def gather_rows(self, state: GenState, rows: Sequence[int]) -> GenState:
         """Slot reuse: re-pack the group's state down to ``rows`` (engine
-        batch indices). Cache leaves are (layers, batch, ...), so the
-        gather is along axis 1."""
+        batch indices). Every cache leaf is (layers, batch, ...), so the
+        gather is along axis 1, over the whole nested tree."""
         idx = torch.as_tensor(list(rows), dtype=torch.long, device=self.device)
-        cache = {k: t.index_select(1, idx) for k, t in state.cache.items()}
+
+        def gather(tree):
+            return {k: gather(v) if isinstance(v, dict) else v.index_select(1, idx)
+                    for k, v in tree.items()}
+        cache = gather(state.cache)
         return GenState(cache=cache, cur=state.cur[idx], pos=state.pos,
                         reserve=state.reserve, padded_b=len(rows))
 

@@ -7,7 +7,7 @@ import pytest
 from repro.configs import base as jax_base
 from repro_torch.configs import base
 
-PORTED = ["internlm2-1.8b", "qwen3-8b", "granite-20b"]
+PORTED = ["internlm2-1.8b", "qwen3-8b", "granite-20b", "zamba2-1.2b"]
 
 
 @pytest.mark.parametrize("reduced", [False, True])
