@@ -46,6 +46,24 @@ Phases:
      counts are set to 0 just before this phase and read just after it.
  12. Report: time the SSD kernel and its plain version at the serving shape,
      and the flash kernel at zamba2's attention shape, beside the bounds.
+ 13. Hold the RWKV6 WKV scan kernel against its plain version
+     (``wkv6_chunked``) with a random initial state and a random bonus u on
+     the two shapes of the JAX kernel test and a strong-decay case
+     (log_w = -11.9 |normal|), in f32 and bf16, and at rwkv6-3b's serving
+     shape (8, 2048, 40 heads, K=V=64, Q=64) in bf16 with a bf16 log decay,
+     as the model passes it.
+ 14. Build rwkv6-3b at its published widths and depth (32 layers, d_model
+     2560, 40 heads of 64, d_ff 8960, vocab 65536) with seeded random f32
+     weights drawn on the card, the leaves the reference initializer zeroes
+     (the token-shift lerps, the decay bias, the bonus) or sets to ones
+     (``ln_x``) drawn at random too, and hold one prefill (B=2, S=1024)
+     through the kernel against the same prefill through ``wkv6_chunked``:
+     last-position logits, both token shifts and the WKV state.
+ 15. Serve: answer 3 requests of 8 prompts x 2048 tokens, 32 new tokens
+     each, through ``Engine`` with rwkv6-3b in bf16. The WKV launch count
+     is set to 0 just before this phase and read just after it.
+ 16. Report: time the WKV kernel and its plain version at the serving
+     shape, beside the bound.
 
 The kernels are built first, one ``nvcc`` per source, all in parallel.
 
@@ -80,6 +98,9 @@ from repro_torch.kernels.mamba2_ssd import ops as ssd_ops  # noqa: E402
 from repro_torch.kernels.mamba2_ssd.ref import ssd_chunked  # noqa: E402
 from repro_torch.kernels.mpnn_mp import mpnn_mp, ops  # noqa: E402
 from repro_torch.kernels.mpnn_mp.ref import message_pass_reference  # noqa: E402
+from repro_torch.kernels.rwkv6_scan import ops as wkv_ops  # noqa: E402
+from repro_torch.kernels.rwkv6_scan import rwkv6_scan  # noqa: E402
+from repro_torch.kernels.rwkv6_scan.ref import wkv6_chunked  # noqa: E402
 from repro_torch.models import api as lm_api  # noqa: E402
 from repro_torch.serving.engine import Engine  # noqa: E402
 
@@ -143,6 +164,25 @@ SSD_TOL = {torch.float32: 1e-3, torch.bfloat16: 1e-1}
 # zamba2-1.2b's shared attention block at the serving batch: MHA, hd 64.
 FA_HYBRID = (SERVE_BATCH, SERVE_PROMPT, SERVE_PROMPT, 32, 32, 64, True,
              None, None, 0)
+
+RWKV_ARCH = "rwkv6-3b"
+# (B, L, H, K, V, Q, decay): log_w = -decay |normal|.
+# tests/test_kernels.py::test_rwkv6_kernel, then the strong decay of
+# ::test_rwkv6_chunked_ref_strong_decay_stable, whose (1,256,2,16,16) is
+# widened to the kernel's smallest head size, 32.
+WKV_CASES = [
+    (2, 128, 4, 32, 32, 64, 2.0),
+    (1, 128, 2, 64, 64, 32, 2.0),
+    (1, 256, 2, 32, 32, 64, 11.9),
+]
+# One rwkv6-3b layer's scan at the serving batch: 40 heads of 64, chunk 64.
+WKV_SERVING = (SERVE_BATCH, SERVE_PROMPT, 40, 64, 64, 64, 2.0)
+# f32: the JAX kernel test's rtol = atol = 1e-4; kernel and wkv6_chunked
+# differ in summation order and in forming the decays (per-step products
+# against exp of cumsums). bf16 y: both compute in f32 from the same bf16
+# inputs and round once to bf16, so they may differ by one bf16 ulp of the
+# largest |y| (``bf16_ulp``); the f32 state keeps 1e-4.
+WKV_TOL = 1e-4
 
 
 def log(msg: str) -> None:
@@ -396,16 +436,19 @@ def phase_lm_serve() -> dict:
                  {"flash_attention": (flash_attention, cfg.num_layers)})
 
 
-def serve(phase: int, cfg, seed: int, kernels: dict) -> dict:
+def serve(phase: int, cfg, seed: int, kernels: dict, prepare=None) -> dict:
     """Answer SERVE_REQUESTS requests through ``Engine``. ``kernels`` maps a
     kernel's name to (its module, launches per request); every count is set
     to 0 just before the requests and must read REQUESTS x per request just
-    after them."""
+    after them. ``prepare(params, gen)``, if given, edits the drawn weights
+    in place before serving."""
     log(f"phase {phase}: serve {SERVE_REQUESTS} requests of {SERVE_BATCH} x "
         f"{SERVE_PROMPT} tokens, {SERVE_MAX_NEW} new, {cfg.name} in bf16")
     gen = torch.Generator(device=DEV).manual_seed(seed)
-    engine = Engine(cfg, lm_api.init_params(cfg, gen, device=DEV),
-                    max_new=SERVE_MAX_NEW)
+    params = lm_api.init_params(cfg, gen, device=DEV)
+    if prepare is not None:
+        prepare(params, gen)
+    engine = Engine(cfg, params, max_new=SERVE_MAX_NEW)
     rng = np.random.default_rng(seed)
     times = {"prefill": [], "decode": []}
     bad_logits = torch.zeros((), dtype=torch.long, device=DEV)
@@ -639,6 +682,154 @@ def phase_ssd_report() -> tuple[dict, dict]:
     return ssd, time_flash(FA_HYBRID, SEED + 11)
 
 
+def bf16_ulp(t) -> float:
+    """One bf16 ulp (8 significant bits) at the largest |t|."""
+    return 2.0 ** (math.floor(math.log2(t.float().abs().max().item())) - 7)
+
+
+def wkv_inputs(case, dtype, gen, lw_dtype=torch.float32, u_dtype=torch.float32):
+    """r, k, v in ``dtype``; log_w = -decay |normal| in ``lw_dtype``;
+    u = 0.5 normal in ``u_dtype``; a random f32 initial state."""
+    B, L, H, K, V, _, decay = case
+    r = torch.randn(B, L, H, K, generator=gen, device=DEV, dtype=dtype)
+    k = torch.randn(B, L, H, K, generator=gen, device=DEV, dtype=dtype)
+    v = torch.randn(B, L, H, V, generator=gen, device=DEV, dtype=dtype)
+    lw = (torch.randn(B, L, H, K, generator=gen, device=DEV).abs_()
+          .mul_(-decay).to(lw_dtype))
+    u = torch.randn(H, K, generator=gen, device=DEV).mul_(0.5).to(u_dtype)
+    s0 = torch.randn(B, H, K, V, generator=gen, device=DEV)
+    return r, k, v, lw, u, s0
+
+
+def hold_wkv(case, dtype, gen, lw_dtype=torch.float32,
+             u_dtype=torch.float32) -> float:
+    """Kernel against wkv6_chunked on the same inputs; max abs error of y
+    and of the final state."""
+    r, k, v, lw, u, s0 = wkv_inputs(case, dtype, gen, lw_dtype, u_dtype)
+    Q = case[5]
+    y, s = wkv_ops.wkv6(r, k, v, lw, u, s0, impl="kernel", chunk=Q)
+    y_want, s_want = wkv6_chunked(r, k, v, lw, u, s0, chunk=Q)
+    torch.cuda.synchronize()
+    check(y.dtype == r.dtype and y.shape == v.shape and s.dtype == torch.float32
+          and s.shape == s0.shape,
+          f"rwkv6_scan outputs {y.dtype} {tuple(y.shape)}, {s.dtype} "
+          f"{tuple(s.shape)}")
+    y_atol = WKV_TOL if dtype == torch.float32 else bf16_ulp(y_want)
+    errs = []
+    for what, a, b_, atol in (("y", y, y_want, y_atol),
+                              ("state", s, s_want, WKV_TOL)):
+        err = (a.float() - b_.float()).abs().max().item()
+        check(bool(torch.isfinite(a).all())
+              and torch.allclose(a.float(), b_.float(), rtol=WKV_TOL, atol=atol),
+              f"rwkv6_scan {case} {dtype} {what}: max abs err {err}")
+        errs.append(err)
+    log(f"  rwkv6_scan {case[:6]} decay {case[6]} {str(dtype):14s} log_w "
+        f"{str(lw_dtype):14s} max abs err y {errs[0]:.3e} (max |y| "
+        f"{y_want.float().abs().max().item():.1f}, atol {y_atol:.1e}), state "
+        f"{errs[1]:.3e} (rtol {WKV_TOL:.0e})")
+    return max(errs)
+
+
+def phase_rwkv_kernels() -> dict:
+    log("phase 13: hold rwkv6_scan against wkv6_chunked")
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 12)
+    for dtype in (torch.float32, torch.bfloat16):
+        for case in WKV_CASES:
+            hold_wkv(case, dtype, gen, lw_dtype=dtype)
+    err = hold_wkv(WKV_SERVING, torch.bfloat16, gen, lw_dtype=torch.bfloat16,
+                   u_dtype=torch.bfloat16)
+    return {"max_abs_err": err}
+
+
+def randomise_rwkv_leaves(params, gen) -> None:
+    """Draw, in place, the leaves the reference initializer sets to zeros
+    (the token-shift lerps, the decay bias, the bonus u) or ones (ln_x), so
+    that a wrong token shift or bonus term shows in the outputs."""
+    tm, cm = params["stack"]["rwkv"]["tmix"], params["stack"]["rwkv"]["cmix"]
+    for t in [tm[f"mu_{n}"] for n in "rkvgw"] + [cm["mu_k"]]:
+        t.copy_(torch.rand(t.shape, generator=gen, device=DEV))
+    tm["w0"].copy_(torch.randn(tm["w0"].shape, generator=gen, device=DEV))
+    tm["u"].copy_(torch.randn(tm["u"].shape, generator=gen, device=DEV) * 0.5)
+    tm["ln_x"].copy_(torch.rand(tm["ln_x"].shape, generator=gen, device=DEV) + 0.5)
+
+
+def phase_rwkv_prefill() -> None:
+    log(f"phase 14: full-width {RWKV_ARCH} in f32, prefill through the kernel "
+        "against prefill through wkv6_chunked")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_config(RWKV_ARCH).replace(param_dtype="float32",
+                                        compute_dtype="float32",
+                                        attn_impl="kernel")
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 13)
+    params = lm_api.init_params(cfg, gen, device=DEV)
+    randomise_rwkv_leaves(params, gen)
+    torch.cuda.synchronize()
+    n = sum(t.numel() for t in _leaves(params))
+    log(f"  {cfg.num_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.d_model // cfg.rwkv_head_size} heads of {cfg.rwkv_head_size}, "
+        f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}: {n / 1e9:.3f} G parameters "
+        f"drawn on the card in {time.perf_counter() - t0:.1f} s")
+    B, S = PREFILL_SHAPE
+    tokens = torch.as_tensor(
+        lm_tokens(np.random.default_rng(SEED + 13), B, S, cfg.vocab_size),
+        device=DEV)
+    wkv0 = rwkv6_scan.LAUNCHES
+    with torch.inference_mode():
+        got, got_cache = lm_api.prefill(params, cfg, {"tokens": tokens})
+        wkv1 = rwkv6_scan.LAUNCHES
+        want, want_cache = lm_api.prefill(
+            params, cfg.replace(attn_impl="ref"), {"tokens": tokens})
+    torch.cuda.synchronize()
+    check(wkv1 - wkv0 == cfg.num_layers and rwkv6_scan.LAUNCHES == wkv1,
+          f"prefill launches: rwkv6_scan {wkv1 - wkv0}; plain prefill "
+          f"{rwkv6_scan.LAUNCHES - wkv1}")
+    log(f"  rwkv6_scan launches: kernel prefill {wkv1 - wkv0}, plain prefill "
+        f"{rwkv6_scan.LAUNCHES - wkv1}")
+    hold_prefill(B, S, cfg, got, want, got_cache, want_cache)
+
+
+def phase_rwkv_serve() -> dict:
+    cfg = get_config(RWKV_ARCH).replace(attn_impl="kernel")
+    return serve(15, cfg, SEED + 14,
+                 {"rwkv6_scan": (rwkv6_scan, cfg.num_layers)},
+                 prepare=randomise_rwkv_leaves)
+
+
+def phase_rwkv_report() -> dict:
+    log(f"phase 16: time rwkv6_scan at the serving shape {WKV_SERVING[:6]} "
+        "(bf16, bf16 log decay)")
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 15)
+    case = WKV_SERVING
+    r, k, v, lw, u, s0 = wkv_inputs(case, torch.bfloat16, gen, torch.bfloat16,
+                                    torch.bfloat16)
+    Q = case[5]
+    ms = median_ms(lambda: wkv_ops.wkv6(r, k, v, lw, u, s0, impl="kernel",
+                                        chunk=Q))
+    plain_ms = median_ms(lambda: wkv6_chunked(r, k, v, lw, u, s0, chunk=Q))
+    B, L, H, K, V = case[:5]
+    # inputs read once (u as the f32 copy the kernel reads), y and the final
+    # state written once
+    moved = (sum(t.numel() * t.element_size() for t in (r, k, v, lw, s0))
+             + u.numel() * 4 + v.numel() * v.element_size()
+             + s0.numel() * s0.element_size())
+    # per (b, h, step): r S (one FMA per state entry), S w + k v (a multiply
+    # and an FMA per entry), the bonus a = sum r u k (3 K) and a v (2 V)
+    flops = B * H * L * (5 * K * V + 3 * K + 2 * V)
+    bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+    flops_ms = flops / F32_FLOP_PER_S * 1e3
+    log(f"  kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, library: none; bound "
+        f"{max(bytes_ms, flops_ms):.3f} ms ({moved / 2**20:.0f} MiB at "
+        f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s = {bytes_ms:.3f} ms; "
+        f"{flops / 1e9:.1f} GFLOP at {F32_FLOP_PER_S / 1e12:.0f} TFLOP/s f32 = "
+        f"{flops_ms:.3f} ms)")
+    return {"ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(bytes_ms, flops_ms),
+            "bound_by": "bytes" if bytes_ms >= flops_ms else "operations",
+            "library_ms": None, "shape": list(case[:6]), "dtype": "bfloat16"}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
@@ -682,6 +873,13 @@ def main() -> None:
     ssd_times, flash["hybrid_shape"] = phase_ssd_report()
     ssd.update(ssd_times)
 
+    wkv = phase_rwkv_kernels()
+    phase_rwkv_prefill()
+    torch.cuda.empty_cache()
+    wkv.update(phase_rwkv_serve()["rwkv6_scan"])
+    torch.cuda.empty_cache()
+    wkv.update(phase_rwkv_report())
+
     card = subprocess.run(
         ["nvidia-smi", "--id=0", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
@@ -699,7 +897,11 @@ def main() -> None:
         "name": "mamba2_ssd", "route": "cuda",
         "source": "src/repro_torch/kernels/mamba2_ssd/mamba2_ssd.cu",
         "replaces": "src/repro/kernels/mamba2_ssd/mamba2_ssd.py:74",
-        **ssd}]}))
+        **ssd}, {
+        "name": "rwkv6_scan", "route": "cuda",
+        "source": "src/repro_torch/kernels/rwkv6_scan/rwkv6_scan.cu",
+        "replaces": "src/repro/kernels/rwkv6_scan/rwkv6_scan.py:68",
+        **wkv}]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

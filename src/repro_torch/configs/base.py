@@ -112,14 +112,14 @@ ARCH_IDS = [
     "seamless-m4t-medium",
 ]
 
-PORTED = ("granite-20b", "qwen3-8b", "internlm2-1.8b", "zamba2-1.2b")
+PORTED = ("granite-20b", "qwen3-8b", "internlm2-1.8b", "zamba2-1.2b",
+          "rwkv6-3b")
 
 # Where each arch not yet ported waits (ROADMAP.md section 1).
 PENDING = {
     "gemma2-2b": "the gemma2 local/global stack",
     "kimi-k2-1t-a32b": "the MoE slice (gmm)",
     "llama4-scout-17b-a16e": "the MoE slice (gmm)",
-    "rwkv6-3b": "the RWKV6 slice (wkv6_pallas)",
     "qwen2-vl-72b": "the enc-dec and VLM slice (M-RoPE)",
     "seamless-m4t-medium": "the enc-dec and VLM slice",
 }

@@ -27,6 +27,7 @@ LIBRARIES = {
     "mpnn_mp": ("mpnn_mp/mpnn_mp.cu",),
     "flash_attention": ("flash_attention/flash_attention.cu",),
     "mamba2_ssd": ("mamba2_ssd/mamba2_ssd.cu",),
+    "rwkv6_scan": ("rwkv6_scan/rwkv6_scan.cu",),
 }
 
 

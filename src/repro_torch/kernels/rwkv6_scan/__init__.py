@@ -1,0 +1,1 @@
+"""RWKV6 ("Finch") WKV recurrence with data-dependent decay (prefill)."""

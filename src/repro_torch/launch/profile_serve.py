@@ -4,6 +4,8 @@ the prefill and around the decode steps of the ``Engine``.
     PYTHONPATH=src python -m repro_torch.launch.profile_serve \
         --arch internlm2-1.8b --full --batch 8 --prompt-len 2048 --max-new 32
 
+(also ``--arch zamba2-1.2b`` or ``--arch rwkv6-3b``).
+
 One request of the same shape runs first, unprofiled, to warm up; a second
 one runs unprofiled to take the host wall time of the prefill and of the
 decode steps; a third runs under the profiler. For each window the script

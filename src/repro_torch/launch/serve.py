@@ -4,10 +4,14 @@ unless ``--device cpu`` is given.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch internlm2-1.8b \
         --batch 4 --prompt-len 64 --max-new 16
     PYTHONPATH=src python -m repro_torch.launch.serve --arch internlm2-1.8b --full
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b --full
 
 Weights are seeded random ones at the config's widths. Prefill attention
-goes through ``ops.attention``: the CUDA flash-attention kernel on the card,
-its plain version on the CPU.
+goes through ``ops.attention``, zamba2's Mamba2 scan through ``ops.ssd`` and
+RWKV6's WKV scan through ``ops.wkv6``: the CUDA kernels on the card, their
+plain versions on the CPU. A zamba2 or rwkv6 prompt longer than the scan
+chunk (64 for rwkv6 and reduced zamba2, 128 for full zamba2) must be a
+multiple of it.
 """
 from __future__ import annotations
 

@@ -1,6 +1,6 @@
 """Public model API of the port: the language-model entry points of
-``repro/models/api.py`` for the ported decoder-only archs (the dense stack
-and the zamba2 hybrid stack).
+``repro/models/api.py`` for the ported decoder-only archs (the dense stack,
+the zamba2 hybrid stack and the RWKV6 stack).
 
     params = init_params(cfg, generator, device)   # nested dict of tensors
     logits, aux = forward(params, cfg, batch)      # full sequence
@@ -11,7 +11,8 @@ batch: {"tokens": (B,S) integers}; positions are 0..S-1. The parameter
 tree has the JAX package's names, shapes and layouts (``tok``,
 ``final_norm``, ``stack/uniform`` stacked over layers; for zamba2
 ``stack/mamba_main`` stacked over (groups, attn_every), ``stack/mamba_tail``
-and ``stack/shared_attn``). The "embeds" and
+and ``stack/shared_attn``; for RWKV6 ``stack/rwkv`` stacked over layers).
+The "embeds" and
 "positions" inputs of the stub-frontend archs, the enc-dec branches and
 ``loss_fn`` wait for their slices.
 """
@@ -95,8 +96,8 @@ def decode_step(params, cfg: ModelConfig, cache, tokens, cur_len):
 def grow_cache(cfg: ModelConfig, cache, new_capacity: int):
     """Pad the attention KV cache with zeros along the sequence axis (axis 2)
     to ``new_capacity``; a cache that is already large enough is returned as
-    it is. The Mamba2 conv and SSM states do not grow with the sequence and
-    pass through."""
+    it is. The Mamba2 conv and SSM states and the RWKV6 token shifts and WKV
+    states do not grow with the sequence and pass through."""
     def pad(t):
         cap = t.shape[2]
         if cap >= new_capacity:
@@ -108,6 +109,8 @@ def grow_cache(cfg: ModelConfig, cache, new_capacity: int):
     def pad_kv(kv):
         return {"k": pad(kv["k"]), "v": pad(kv["v"])}
 
+    if cfg.rwkv:
+        return cache
     if cfg.family == "hybrid":
         return {"mamba": cache["mamba"], "attn": pad_kv(cache["attn"])}
     return pad_kv(cache)

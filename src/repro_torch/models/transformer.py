@@ -1,12 +1,12 @@
-"""Decoder-only transformer stacks: the port of the uniform dense stack and
-the zamba2 hybrid stack of ``repro/models/transformer.py``.
+"""Decoder-only transformer stacks: the port of the uniform dense stack, the
+zamba2 hybrid stack and the RWKV6 stack of ``repro/models/transformer.py``.
 
 The JAX package scans stacked (L, ...) parameters with ``lax.scan``; the port
 keeps the same stacked layout and loops over layers in Python. The same
 blocks serve the full-sequence forward (no cache), prefill (collect the
-cache) and decode (write the cache at ``cur_len`` and attend over it).
-The gemma2 local/global stack, RWKV6, MoE and enc-dec stacks wait for their
-slices (ROADMAP.md section 1).
+cache) and decode (write the cache at ``cur_len`` and attend over it, or
+carry the recurrent states). The gemma2 local/global stack, MoE and enc-dec
+stacks wait for their slices (ROADMAP.md section 1).
 """
 from __future__ import annotations
 
@@ -14,7 +14,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
-from repro_torch.models import mamba2
+from repro_torch.models import mamba2, rwkv6
 from repro_torch.models.layers import rmsnorm, rmsnorm_params, rope_cos_sin
 from repro_torch.models.mlp import mlp, mlp_params
 
@@ -22,7 +22,6 @@ from repro_torch.models.mlp import mlp, mlp_params
 def check_supported(cfg: ModelConfig) -> None:
     """Raise NotImplementedError for a config whose layers are not ported."""
     pending = [
-        (cfg.rwkv, "RWKV6 stack", "the RWKV6 slice"),
         (cfg.is_moe, "MoE FFN", "the MoE slice"),
         (cfg.is_encdec, "enc-dec stack", "the enc-dec and VLM slice"),
         (cfg.mrope_sections is not None, "M-RoPE", "the enc-dec and VLM slice"),
@@ -45,6 +44,15 @@ def dense_block_params(mk, cfg: ModelConfig, stacked=()):
     }
 
 
+def rwkv_block_params(mk, cfg: ModelConfig, stacked=()):
+    return {
+        "ln1": rmsnorm_params(mk, cfg.d_model, stacked),
+        "tmix": rwkv6.rwkv_time_mix_params(mk, cfg, stacked),
+        "ln2": rmsnorm_params(mk, cfg.d_model, stacked),
+        "cmix": rwkv6.rwkv_channel_mix_params(mk, cfg, stacked),
+    }
+
+
 def mamba_block_params(mk, cfg: ModelConfig, stacked=()):
     return {
         "ln": rmsnorm_params(mk, cfg.d_model, stacked),
@@ -54,6 +62,8 @@ def mamba_block_params(mk, cfg: ModelConfig, stacked=()):
 
 def stack_params(mk, cfg: ModelConfig):
     check_supported(cfg)
+    if cfg.rwkv:
+        return {"rwkv": rwkv_block_params(mk, cfg, stacked=(cfg.num_layers,))}
     if cfg.family == "hybrid":
         ae = max(cfg.attn_every, 1)
         groups, tail = divmod(cfg.num_layers, ae)
@@ -85,6 +95,26 @@ def apply_dense_block(p, h, cfg: ModelConfig, *, cos, sin, window=None,
     return h, new_cache
 
 
+def apply_rwkv_block(p, h, cfg: ModelConfig, cache=None):
+    """cache: None or {"tm_shift", "state", "cm_shift"} of this layer;
+    returns (h, the layer's new cache or None)."""
+    tm_cache = cm_cache = None
+    if cache is not None:
+        tm_cache = {"shift": cache["tm_shift"], "state": cache["state"]}
+        cm_cache = {"shift": cache["cm_shift"]}
+    t_out, tm_new = rwkv6.rwkv_time_mix(
+        p["tmix"], rmsnorm(p["ln1"], h, cfg.norm_eps), cfg, tm_cache)
+    h = h + t_out
+    c_out, cm_new = rwkv6.rwkv_channel_mix(
+        p["cmix"], rmsnorm(p["ln2"], h, cfg.norm_eps), cfg, cm_cache)
+    h = h + c_out
+    new_cache = None
+    if cache is not None:
+        new_cache = {"tm_shift": tm_new["shift"], "state": tm_new["state"],
+                     "cm_shift": cm_new["shift"]}
+    return h, new_cache
+
+
 def apply_mamba_block(p, h, cfg: ModelConfig, cache=None):
     m_out, new_cache = mamba2.mamba_block(
         p["mamba"], rmsnorm(p["ln"], h, cfg.norm_eps), cfg, cache)
@@ -107,6 +137,8 @@ def run_stack(params, h, cfg: ModelConfig, *, cos, sin, cache=None,
     if collect_cache:
         B, S = h.shape[:2]
         cache = init_cache(cfg, B, max(reserve or S, S), device=h.device)
+    if cfg.rwkv:
+        return _run_rwkv_stack(params["rwkv"], h, cfg, cache), cache
     kw = dict(cos=cos, sin=sin, cur_len=cur_len, collect_cache=collect_cache)
     if cfg.family == "hybrid":
         return _run_zamba_stack(params, h, cfg, cache, **kw), cache
@@ -129,6 +161,26 @@ def _attention_layer(p, h, cfg, kv, i, *, cos, sin, cur_len, collect_cache):
         S = h.shape[1]
         kv["k"][i, :, :S] = new_kv["k"]
         kv["v"][i, :, :S] = new_kv["v"]
+    return h
+
+
+def _run_rwkv_stack(params, h, cfg, cache):
+    """RWKV6: a uniform stack of time-mix + channel-mix blocks. Cache:
+    {tm_shift, cm_shift (layers, B, 1, D), state (layers, B, H, K, K)}.
+
+    Prefill hands every block its zero states, as the JAX package does, so
+    a prompt longer than one token runs the WKV scan and a one-token prompt
+    the decode step; each block's new states are written into the cache in
+    place, in prefill and in decode."""
+    for i in range(cfg.num_layers):
+        p = _layer(params, i)
+        if cache is None:
+            h = apply_rwkv_block(p, h, cfg)[0]
+            continue
+        h, new = apply_rwkv_block(p, h, cfg,
+                                  {name: t[i] for name, t in cache.items()})
+        for name, t in cache.items():
+            t[i].copy_(new[name])
     return h
 
 
@@ -168,7 +220,11 @@ def _run_zamba_stack(params, h, cfg, cache, **kw):
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda"):
     """Decode cache for the decoder stack, stacked over layers (hybrid: the
-    Mamba2 states over layers and the shared block's K/V over groups)."""
+    Mamba2 states over layers and the shared block's K/V over groups; RWKV6:
+    the token shifts and WKV states, which do not grow with ``max_len``)."""
+    if cfg.rwkv:
+        return rwkv6.init_rwkv_cache(cfg, batch, cfg.num_layers,
+                                     device=device)
     if cfg.family == "hybrid":
         groups = cfg.num_layers // max(cfg.attn_every, 1)
         return {
@@ -188,5 +244,7 @@ def positions_for(cfg: ModelConfig, batch: int, seq: int, offset=0,
 
 
 def rope_tables(cfg: ModelConfig, positions):
+    if cfg.rwkv:
+        return None, None
     return rope_cos_sin(positions, cfg.resolved_head_dim, cfg.rope_theta,
                         cfg.mrope_sections)

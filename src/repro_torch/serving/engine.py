@@ -40,7 +40,8 @@ class GenState:
     cache: dict                   # api.init_cache's tree; every leaf is
                                   # (layers, batch, ...): dense {k, v}
                                   # (layers, B, reserve, KVH, hd); zamba2
-                                  # {mamba: {conv, ssm}, attn: {k, v}}
+                                  # {mamba: {conv, ssm}, attn: {k, v}};
+                                  # rwkv6 {tm_shift, cm_shift, state}
     cur: torch.Tensor             # (B, 1) last emitted token per row
     pos: int                      # tokens already written to the cache
     reserve: int                  # cache capacity (prompt + generation)

@@ -7,7 +7,8 @@ import pytest
 from repro.configs import base as jax_base
 from repro_torch.configs import base
 
-PORTED = ["internlm2-1.8b", "qwen3-8b", "granite-20b", "zamba2-1.2b"]
+PORTED = ["internlm2-1.8b", "qwen3-8b", "granite-20b", "zamba2-1.2b",
+          "rwkv6-3b"]
 
 
 @pytest.mark.parametrize("reduced", [False, True])
