@@ -64,6 +64,35 @@ Phases:
      is set to 0 just before this phase and read just after it.
  16. Report: time the WKV kernel and its plain version at the serving
      shape, beside the bound.
+ 17. Hold the grouped-matmul (gmm) kernel against its plain version
+     (``gmm_reference``) on the two shapes of the JAX kernel test and on
+     ragged row counts (53, 1, 8), in f32 and bf16, and on every shape
+     llama4-scout's serving gives it, in bf16: prefill gate/up
+     (16, 2048, 5120) x (16, 5120, 8192), prefill down (16, 2048, 8192) x
+     (16, 8192, 5120), decode gate/up (16, 8, 5120) x (16, 5120, 8192),
+     decode down (16, 8, 8192) x (16, 8192, 5120); and the flash kernel at
+     llama4-scout's attention shape (8, 2048, 40 heads, 8 KV heads, hd 128)
+     in bf16.
+ 18. Build llama4-scout at its published widths (d_model 5120, 40 heads /
+     8 KV heads of 128, 16 experts top-1 of d_ff 8192, vocab 202048) cut to
+     4 layers, with seeded random f32 weights drawn on the card, and hold
+     one prefill (B=2, S=1024) with the expert products in the kernel
+     (``moe_impl="gmm"``) against the same prefill through the plain
+     einsums (``moe_impl="dropping"``): last-position logits and the KV
+     cache, the launch counts of both passes, and every token's top-1
+     expert in every layer. A different top-1 expert where the top two
+     gates are more than 1e-5 apart is a fault; a flip at a smaller margin
+     (a near-tie two correct passes may break differently) takes its batch
+     row out of the comparison, and is logged.
+ 19. Serve: answer 3 requests of 8 prompts x 2048 tokens, 32 new tokens
+     each, through ``Engine`` with llama4-scout cut to 12 layers (50.3 GiB
+     of bf16 weights; the published 48 do not fit one card). Every MoE FFN
+     of prefill and decode runs the gmm kernel and every prefill attention
+     the flash kernel; both launch counts are set to 0 just before this
+     phase and read just after it.
+ 20. Report: time the gmm kernel, its plain version and ``torch.bmm`` at
+     the prefill (gate) and decode shapes in bf16, and the flash kernel at
+     llama4-scout's attention shape, beside the bounds.
 
 The kernels are built first, one ``nvcc`` per source, all in parallel.
 
@@ -96,12 +125,16 @@ from repro_torch.kernels.flash_attention.ref import attention_reference  # noqa:
 from repro_torch.kernels.mamba2_ssd import mamba2_ssd  # noqa: E402
 from repro_torch.kernels.mamba2_ssd import ops as ssd_ops  # noqa: E402
 from repro_torch.kernels.mamba2_ssd.ref import ssd_chunked  # noqa: E402
+from repro_torch.kernels.moe_gmm import moe_gmm  # noqa: E402
+from repro_torch.kernels.moe_gmm import ops as gmm_ops  # noqa: E402
+from repro_torch.kernels.moe_gmm.ref import gmm_reference  # noqa: E402
 from repro_torch.kernels.mpnn_mp import mpnn_mp, ops  # noqa: E402
 from repro_torch.kernels.mpnn_mp.ref import message_pass_reference  # noqa: E402
 from repro_torch.kernels.rwkv6_scan import ops as wkv_ops  # noqa: E402
 from repro_torch.kernels.rwkv6_scan import rwkv6_scan  # noqa: E402
 from repro_torch.kernels.rwkv6_scan.ref import wkv6_chunked  # noqa: E402
 from repro_torch.models import api as lm_api  # noqa: E402
+from repro_torch.models import moe as lm_moe  # noqa: E402
 from repro_torch.serving.engine import Engine  # noqa: E402
 
 DEV = "cuda"
@@ -183,6 +216,31 @@ WKV_SERVING = (SERVE_BATCH, SERVE_PROMPT, 40, 64, 64, 64, 2.0)
 # inputs and round once to bf16, so they may differ by one bf16 ulp of the
 # largest |y| (``bf16_ulp``); the f32 state keeps 1e-4.
 WKV_TOL = 1e-4
+
+MOE_ARCH = "llama4-scout-17b-a16e"
+MOE_PREFILL_LAYERS = 4     # 38.6 GiB of f32 weights
+MOE_SERVE_LAYERS = 12      # 50.3 GiB of bf16 weights
+# (G, M, D, F): tests/test_kernels.py::test_gmm_kernel, then ragged row
+# counts: reduced kimi-k2's 53 slots, one slot, and 8 (decode at B=8).
+GMM_CASES = [(4, 128, 256, 512), (8, 64, 128, 128), (8, 53, 128, 64),
+             (4, 1, 128, 64), (16, 8, 512, 256)]
+# llama4-scout's products at the serving batch: capacity 256 slots per row
+# in prefill (round(2048 / 16 * 1.25) = 160, rounded up to a multiple of
+# 128), one in decode; rows = 8 batch rows x slots.
+GMM_PREFILL = (16, SERVE_BATCH * 256, 5120, 8192)
+GMM_PREFILL_DOWN = (16, SERVE_BATCH * 256, 8192, 5120)
+GMM_DECODE = (16, SERVE_BATCH, 5120, 8192)
+GMM_DECODE_DOWN = (16, SERVE_BATCH, 8192, 5120)
+# f32: kernel and plain version differ only in summation order. bf16: both
+# round an f32 sum of exact products once, so they may differ by one bf16
+# ulp of the largest |out| (``bf16_ulp``).
+GMM_TOL = 1e-4
+# Two correct passes may route a token to different experts where its top
+# two gates are this close (summation order moves a gate by ~1e-7).
+ROUTE_MARGIN = 1e-5
+# llama4-scout's prefill attention at the serving batch: GQA group 5.
+FA_MOE = (SERVE_BATCH, SERVE_PROMPT, SERVE_PROMPT, 40, 8, 128, True, None,
+          None, 0)
 
 
 def log(msg: str) -> None:
@@ -401,10 +459,19 @@ def phase_lm_prefill() -> None:
     hold_prefill(B, S, cfg, got, want, got_cache, want_cache)
 
 
-def hold_prefill(B, S, cfg, got, want, got_cache, want_cache) -> None:
-    """Kernel prefill against plain prefill: logits and every cache leaf."""
+def hold_prefill(B, S, cfg, got, want, got_cache, want_cache,
+                 rows=None) -> None:
+    """Kernel prefill against plain prefill: logits and every cache leaf
+    (every leaf is (layers, batch, ...)), of the batch rows ``rows`` only
+    if given."""
     check(got.shape == (B, cfg.vocab_size) and bool(torch.isfinite(got).all()),
           f"prefill logits {tuple(got.shape)} not finite or misshapen")
+    if rows is not None:
+        def take(tree):
+            return {k: take(v) if isinstance(v, dict) else v[:, rows]
+                    for k, v in tree.items()}
+        got, want = got[rows], want[rows]
+        got_cache, want_cache = take(got_cache), take(want_cache)
     for what, a, b in (("logits", got, want),
                        *((f"cache {path}", a, b) for (path, a), (_, b) in
                          zip(_named_leaves(got_cache),
@@ -830,6 +897,174 @@ def phase_rwkv_report() -> dict:
             "library_ms": None, "shape": list(case[:6]), "dtype": "bfloat16"}
 
 
+def gmm_inputs(case, dtype, gen):
+    """xe = normal, w = normal / sqrt(D) (the scale of the model's weights),
+    both in ``dtype``."""
+    G, M, D, F = case
+    xe = torch.randn(G, M, D, generator=gen, device=DEV, dtype=dtype)
+    w = torch.randn(G, D, F, generator=gen, device=DEV).div_(math.sqrt(D))
+    return xe, w.to(dtype)
+
+
+def hold_gmm(case, dtype, gen) -> float:
+    """Kernel against gmm_reference on the same inputs; max abs error."""
+    xe, w = gmm_inputs(case, dtype, gen)
+    got = gmm_ops.gmm(xe, w, impl="kernel")
+    want = gmm_reference(xe, w)
+    torch.cuda.synchronize()
+    G, M, _, F = case
+    check(got.dtype == xe.dtype and got.shape == (G, M, F),
+          f"moe_gmm output {got.dtype} {tuple(got.shape)}")
+    if dtype == torch.float32:
+        rtol, atol = GMM_TOL, GMM_TOL
+    else:
+        rtol, atol = 0.0, bf16_ulp(want)
+    err = (got.float() - want.float()).abs().max().item()
+    check(bool(torch.isfinite(got).all())
+          and torch.allclose(got.float(), want.float(), rtol=rtol, atol=atol),
+          f"moe_gmm {case} {dtype}: max abs err {err}")
+    log(f"  moe_gmm {case} {str(dtype):14s} max abs err {err:.3e} (max |out| "
+        f"{want.float().abs().max().item():.2f}; rtol {rtol:.0e}, atol "
+        f"{atol:.1e})")
+    return err
+
+
+def phase_gmm_kernels() -> tuple[dict, float]:
+    log("phase 17: hold moe_gmm against gmm_reference, and flash_attention "
+        f"at {MOE_ARCH}'s attention shape")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 16)
+    for dtype in (torch.float32, torch.bfloat16):
+        for case in GMM_CASES:
+            hold_gmm(case, dtype, gen)
+    errs = {case: hold_gmm(case, torch.bfloat16, gen)
+            for case in (GMM_PREFILL, GMM_PREFILL_DOWN, GMM_DECODE,
+                         GMM_DECODE_DOWN)}
+    torch.cuda.empty_cache()
+    flash_err = hold_flash(FA_MOE, torch.bfloat16, gen)
+    return {"max_abs_err": errs[GMM_PREFILL],
+            "max_abs_err_prefill_down": errs[GMM_PREFILL_DOWN],
+            "max_abs_err_decode": errs[GMM_DECODE],
+            "max_abs_err_decode_down": errs[GMM_DECODE_DOWN]}, flash_err
+
+
+def phase_moe_prefill() -> None:
+    log(f"phase 18: {MOE_ARCH} at published widths, {MOE_PREFILL_LAYERS} "
+        "layers, in f32: prefill through the gmm kernel against prefill "
+        "through the plain einsums")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_config(MOE_ARCH).replace(
+        num_layers=MOE_PREFILL_LAYERS, param_dtype="float32",
+        compute_dtype="float32", attn_impl="kernel", moe_impl="gmm")
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 17)
+    params = lm_api.init_params(cfg, gen, device=DEV)
+    torch.cuda.synchronize()
+    n = sum(t.numel() for t in _leaves(params))
+    log(f"  {cfg.num_layers} layers, d_model {cfg.d_model}, {cfg.num_heads} "
+        f"heads / {cfg.num_kv_heads} KV heads of {cfg.resolved_head_dim}, "
+        f"{cfg.num_experts} experts top-{cfg.num_experts_per_token} of d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab_size}: {n / 1e9:.3f} G parameters "
+        f"({n * 4 / 2**30:.1f} GiB) drawn on the card in "
+        f"{time.perf_counter() - t0:.1f} s")
+    B, S = PREFILL_SHAPE
+    tokens = torch.as_tensor(
+        lm_tokens(np.random.default_rng(SEED + 17), B, S, cfg.vocab_size),
+        device=DEV)
+    routes = []     # per router call: (top-1 expert, top-1 minus top-2 gate)
+    router = lm_moe._router
+
+    def recording_router(p, x, c):
+        gates, topw, topi = router(p, x, c)
+        top2 = gates.topk(2, dim=-1).values
+        routes.append((topi[..., 0], top2[..., 0] - top2[..., 1]))
+        return gates, topw, topi
+
+    lm_moe._router = recording_router
+    try:
+        g0 = moe_gmm.LAUNCHES
+        with torch.inference_mode():
+            got, got_cache = lm_api.prefill(params, cfg, {"tokens": tokens})
+            g1 = moe_gmm.LAUNCHES
+            want, want_cache = lm_api.prefill(
+                params, cfg.replace(moe_impl="dropping"), {"tokens": tokens})
+        torch.cuda.synchronize()
+    finally:
+        lm_moe._router = router
+    del params
+    L = cfg.num_layers
+    log(f"  moe_gmm launches: kernel prefill {g1 - g0}, plain prefill "
+        f"{moe_gmm.LAUNCHES - g1}")
+    check(g1 - g0 == 3 * L and moe_gmm.LAUNCHES == g1,
+          f"prefill launches: moe_gmm {g1 - g0}, plain prefill "
+          f"{moe_gmm.LAUNCHES - g1}; expected {3 * L} and 0")
+    check(len(routes) == 2 * L, f"{len(routes)} router calls, expected {2 * L}")
+    flipped = torch.zeros(B, dtype=torch.bool, device=DEV)
+    smallest = math.inf
+    for layer, ((e_k, m_k), (e_p, m_p)) in enumerate(zip(routes[:L], routes[L:])):
+        flip = e_k != e_p
+        margin = torch.minimum(m_k, m_p)
+        smallest = min(smallest, margin.min().item())
+        if bool(flip.any()):
+            worst = margin[flip].max().item()
+            log(f"  layer {layer}: {int(flip.sum())} top-1 flip(s), largest "
+                f"gate margin among them {worst:.3e}")
+            check(worst <= ROUTE_MARGIN,
+                  f"layer {layer}: top-1 expert differs at a gate margin of "
+                  f"{worst:.3e} > {ROUTE_MARGIN:.0e}")
+            flipped |= flip.any(-1)
+    rows = [b for b in range(B) if not flipped[b]]
+    log(f"  top-1 experts of {B * S} tokens in {L} layers: "
+        f"{'identical' if len(rows) == B else f'flips in rows {sorted(set(range(B)) - set(rows))}'}"
+        f"; smallest top-1/top-2 gate margin {smallest:.3e}; holding rows {rows}")
+    check(len(rows) > 0, "every batch row had a routing flip")
+    hold_prefill(B, S, cfg, got, want, got_cache, want_cache, rows=rows)
+
+
+def phase_moe_serve() -> dict:
+    cfg = get_config(MOE_ARCH).replace(num_layers=MOE_SERVE_LAYERS,
+                                       attn_impl="kernel", moe_impl="gmm")
+    L = cfg.num_layers
+    return serve(19, cfg, SEED + 18,
+                 {"moe_gmm": (moe_gmm, 3 * L * SERVE_MAX_NEW),
+                  "flash_attention": (flash_attention, L)})
+
+
+def time_gmm(case, seed: int) -> dict:
+    """Kernel, plain version and torch.bmm at ``case`` in bf16, beside the
+    bound."""
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    xe, w = gmm_inputs(case, torch.bfloat16, gen)
+    ms = median_ms(lambda: gmm_ops.gmm(xe, w, impl="kernel"))
+    plain_ms = median_ms(lambda: gmm_reference(xe, w))
+    library_ms = median_ms(lambda: torch.bmm(xe, w))
+    G, M, D, F = case
+    moved = (xe.numel() + w.numel() + G * M * F) * xe.element_size()
+    flops = 2 * G * M * D * F
+    bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+    flops_ms = flops / BF16_FLOP_PER_S * 1e3
+    log(f"  {case}: kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s), "
+        f"plain {plain_ms:.3f} ms, torch.bmm {library_ms:.3f} ms; bound "
+        f"{max(bytes_ms, flops_ms):.3f} ms ({flops / 1e12:.3f} TFLOP at "
+        f"{BF16_FLOP_PER_S / 1e12:.0f} TFLOP/s = {flops_ms:.3f} ms; "
+        f"{moved / 1e9:.3f} GB at {HBM_BYTES_PER_S / 1e12:.2f} TB/s = "
+        f"{bytes_ms:.3f} ms)")
+    return {"ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(bytes_ms, flops_ms),
+            "bound_by": "bytes" if bytes_ms >= flops_ms else "operations",
+            "library_ms": library_ms, "shape": list(case), "dtype": "bfloat16"}
+
+
+def phase_gmm_report() -> tuple[dict, dict]:
+    log(f"phase 20: time moe_gmm at the prefill {GMM_PREFILL} and decode "
+        f"{GMM_DECODE} shapes (bf16), and flash_attention at {FA_MOE[:6]}")
+    gmm = time_gmm(GMM_PREFILL, SEED + 19)
+    gmm["decode"] = time_gmm(GMM_DECODE, SEED + 20)
+    torch.cuda.empty_cache()
+    return gmm, time_flash(FA_MOE, SEED + 21)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
@@ -864,11 +1099,9 @@ def main() -> None:
     torch.cuda.empty_cache()
     hybrid = phase_hybrid_serve()
     ssd.update(hybrid["mamba2_ssd"])
-    # the flash kernel runs on both serving paths; each was counted alone
+    # the flash kernel runs on three serving paths; each was counted alone
     flash["launches_by_path"] = {LM_ARCH: lm_launches,
                                  HYBRID_ARCH: hybrid["flash_attention"]}
-    flash["launches"] = sum(v["launches"]
-                            for v in flash["launches_by_path"].values())
     torch.cuda.empty_cache()
     ssd_times, flash["hybrid_shape"] = phase_ssd_report()
     ssd.update(ssd_times)
@@ -879,6 +1112,19 @@ def main() -> None:
     wkv.update(phase_rwkv_serve()["rwkv6_scan"])
     torch.cuda.empty_cache()
     wkv.update(phase_rwkv_report())
+    torch.cuda.empty_cache()
+
+    gmm, flash["max_abs_err_moe"] = phase_gmm_kernels()
+    phase_moe_prefill()
+    torch.cuda.empty_cache()
+    moe = phase_moe_serve()
+    gmm.update(moe["moe_gmm"])
+    flash["launches_by_path"][MOE_ARCH] = moe["flash_attention"]
+    flash["launches"] = sum(v["launches"]
+                            for v in flash["launches_by_path"].values())
+    torch.cuda.empty_cache()
+    gmm_times, flash["moe_shape"] = phase_gmm_report()
+    gmm.update(gmm_times)
 
     card = subprocess.run(
         ["nvidia-smi", "--id=0", "--query-gpu=name,power.limit",
@@ -901,7 +1147,11 @@ def main() -> None:
         "name": "rwkv6_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/rwkv6_scan/rwkv6_scan.cu",
         "replaces": "src/repro/kernels/rwkv6_scan/rwkv6_scan.py:68",
-        **wkv}]}))
+        **wkv}, {
+        "name": "moe_gmm", "route": "cuda",
+        "source": "src/repro_torch/kernels/moe_gmm/moe_gmm.cu",
+        "replaces": "src/repro/kernels/moe_gmm/moe_gmm.py:42",
+        **gmm}]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -66,11 +66,12 @@ class ModelConfig:
     compute_dtype: str = "bfloat16"
 
     # Implementation switches (do not change semantics). In the port,
-    # attn_impl="kernel" sends prefill attention to ops.attention (the CUDA
-    # kernel for CUDA tensors, its plain version for CPU tensors).
+    # attn_impl="kernel" sends prefill attention to ops.attention and
+    # moe_impl="gmm" the expert products to ops.gmm (the CUDA kernels for
+    # CUDA tensors, their plain versions for CPU tensors).
     attn_impl: str = "ref"      # ref (chunked plain torch) | kernel
     attn_chunk: int = 1024      # KV chunk for the chunked-ref path
-    moe_impl: str = "dropping"  # dense | dropping (capacity-based EP dispatch)
+    moe_impl: str = "dropping"  # dropping | einsum | dense | gmm | ep_a2a
     remat: str = "block"        # none | block | policy (training only)
     scan_layers: bool = True    # the JAX package's lax.scan switch; the port
                                 # always loops over layers in Python
@@ -113,13 +114,11 @@ ARCH_IDS = [
 ]
 
 PORTED = ("granite-20b", "qwen3-8b", "internlm2-1.8b", "zamba2-1.2b",
-          "rwkv6-3b")
+          "kimi-k2-1t-a32b", "llama4-scout-17b-a16e", "rwkv6-3b")
 
 # Where each arch not yet ported waits (ROADMAP.md section 1).
 PENDING = {
     "gemma2-2b": "the gemma2 local/global stack",
-    "kimi-k2-1t-a32b": "the MoE slice (gmm)",
-    "llama4-scout-17b-a16e": "the MoE slice (gmm)",
     "qwen2-vl-72b": "the enc-dec and VLM slice (M-RoPE)",
     "seamless-m4t-medium": "the enc-dec and VLM slice",
 }

@@ -28,6 +28,7 @@ LIBRARIES = {
     "flash_attention": ("flash_attention/flash_attention.cu",),
     "mamba2_ssd": ("mamba2_ssd/mamba2_ssd.cu",),
     "rwkv6_scan": ("rwkv6_scan/rwkv6_scan.cu",),
+    "moe_gmm": ("moe_gmm/moe_gmm.cu",),
 }
 
 

@@ -1,0 +1,55 @@
+"""Dispatching wrapper for the grouped matmul, and the MoE FFN built on it:
+the port of ``repro/kernels/moe_gmm/ops.py``.
+
+Routing and dispatch are those of ``models.moe.moe_dropping``
+(``models.moe.dispatch``); the three expert products (gate, up, down) go
+through ``gmm``. The JAX package maps the per-row dispatch over the batch
+and tiles the expert weights to (B*E, D, F) for its kernel; here the slots
+of all batch rows are laid out expert-major, (E, B*C, D), so each product
+is one kernel call against the untiled weights (E, D, F) and every
+expert's weights are read once. Each output row is the same dot product of
+the same token with the same weight column, so the function is the same.
+"""
+from __future__ import annotations
+
+from repro_torch.kernels.moe_gmm import moe_gmm
+from repro_torch.kernels.moe_gmm.ref import gmm_reference
+from repro_torch.models import moe as moe_mod
+from repro_torch.models.layers import dtype_of
+from repro_torch.models.mlp import _ACTS
+
+__all__ = ["expert_ffn", "gmm", "moe_ffn"]
+
+
+def gmm(xe, w, *, impl: str | None = None):
+    """xe (G,M,D) @ w (G,D,F) -> (G,M,F) in xe's dtype.
+
+    impl="kernel" launches the CUDA kernel and raises on CPU tensors;
+    impl="ref" is the plain version; None picks the kernel for CUDA tensors
+    and the plain version for CPU tensors."""
+    if impl is None:
+        impl = "kernel" if xe.is_cuda else "ref"
+    if impl == "kernel":
+        if not xe.is_cuda:
+            raise ValueError("impl='kernel' needs CUDA tensors; "
+                             "use impl='ref' on the CPU")
+        return moe_gmm.gmm_cuda(xe, w)
+    if impl == "ref":
+        return gmm_reference(xe, w)
+    raise ValueError(f"unknown impl {impl!r}")
+
+
+def expert_ffn(params, xe, cfg):
+    """xe (E, N, D) -> (E, N, D): the per-expert gated MLP as three ``gmm``
+    calls on the untiled (E, D, F) weights, with the JAX package's casts
+    (activation and product in f32, then the compute dtype)."""
+    cd = dtype_of(cfg.compute_dtype)
+    g = gmm(xe, params["wi_gate"].to(cd))
+    u = gmm(xe, params["wi_up"].to(cd))
+    return gmm((_ACTS[cfg.act](g.float()) * u.float()).to(cd),
+               params["wo"].to(cd))
+
+
+def moe_ffn(params, x, cfg):
+    """x (B,S,D) -> (y (B,S,D), aux_loss)."""
+    return moe_mod.dispatch(params, x, cfg, expert_ffn)

@@ -4,7 +4,8 @@ the prefill and around the decode steps of the ``Engine``.
     PYTHONPATH=src python -m repro_torch.launch.profile_serve \
         --arch internlm2-1.8b --full --batch 8 --prompt-len 2048 --max-new 32
 
-(also ``--arch zamba2-1.2b`` or ``--arch rwkv6-3b``).
+(also ``--arch zamba2-1.2b``, ``--arch rwkv6-3b``, or ``--arch
+llama4-scout-17b-a16e --num-layers 12``, the depth one card holds).
 
 One request of the same shape runs first, unprofiled, to warm up; a second
 one runs unprofiled to take the host wall time of the prefill and of the
@@ -26,7 +27,7 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-from repro_torch.configs.base import get_config
+from repro_torch.launch.serve import serving_config
 from repro_torch.models import api
 from repro_torch.serving.engine import Engine
 
@@ -62,11 +63,13 @@ def main(argv=None):
     ap.add_argument("--top", type=int, default=12)
     ap.add_argument("--trace", default=None,
                     help="directory for Chrome traces of the two windows")
+    ap.add_argument("--num-layers", type=int, default=None,
+                    help="depth cut (widths unchanged), e.g. 12 for "
+                    "llama4-scout on one 80 GB card")
     args = ap.parse_args(argv)
 
     on_cuda = torch.device(args.device).type == "cuda"
-    cfg = get_config(args.arch, reduced=not args.full).replace(
-        attn_impl="kernel")
+    cfg = serving_config(args.arch, args.full, args.num_layers)
     gen = torch.Generator(device=args.device).manual_seed(args.seed)
     engine = Engine(cfg, api.init_params(cfg, gen, device=args.device),
                     max_new=args.max_new)

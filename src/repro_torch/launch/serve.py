@@ -5,13 +5,18 @@ unless ``--device cpu`` is given.
         --batch 4 --prompt-len 64 --max-new 16
     PYTHONPATH=src python -m repro_torch.launch.serve --arch internlm2-1.8b --full
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b --full
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch llama4-scout-17b-a16e --full --num-layers 12
 
 Weights are seeded random ones at the config's widths. Prefill attention
-goes through ``ops.attention``, zamba2's Mamba2 scan through ``ops.ssd`` and
-RWKV6's WKV scan through ``ops.wkv6``: the CUDA kernels on the card, their
-plain versions on the CPU. A zamba2 or rwkv6 prompt longer than the scan
-chunk (64 for rwkv6 and reduced zamba2, 128 for full zamba2) must be a
-multiple of it.
+goes through ``ops.attention``, zamba2's Mamba2 scan through ``ops.ssd``,
+RWKV6's WKV scan through ``ops.wkv6`` and the MoE archs' expert products
+(prefill and decode) through ``ops.gmm``: the CUDA kernels on the card,
+their plain versions on the CPU. A zamba2 or rwkv6 prompt longer than the
+scan chunk (64 for rwkv6 and reduced zamba2, 128 for full zamba2) must be a
+multiple of it. ``--num-layers`` cuts the depth and keeps every width:
+llama4-scout's published 48 layers are about 199 GB in bf16, more than one
+80 GB card holds, and 12 layers (50.3 GiB) fit.
 """
 from __future__ import annotations
 
@@ -25,6 +30,18 @@ from repro_torch.models import api
 from repro_torch.serving.engine import Engine
 
 
+def serving_config(arch: str, full: bool, num_layers=None):
+    """The config served: published widths (``full``) or the reduced one,
+    prefill attention and MoE expert products through the kernels, and the
+    depth cut to ``num_layers`` if given."""
+    cfg = get_config(arch, reduced=not full).replace(attn_impl="kernel")
+    if cfg.is_moe:
+        cfg = cfg.replace(moe_impl="gmm")
+    if num_layers:
+        cfg = cfg.replace(num_layers=num_layers)
+    return cfg
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
@@ -36,10 +53,12 @@ def main(argv=None):
                     help="number of batched request rounds")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--num-layers", type=int, default=None,
+                    help="depth cut (widths unchanged), e.g. 12 for "
+                    "llama4-scout on one 80 GB card")
     args = ap.parse_args(argv)
 
-    cfg = get_config(args.arch, reduced=not args.full).replace(
-        attn_impl="kernel")
+    cfg = serving_config(args.arch, args.full, args.num_layers)
     gen = torch.Generator(device=args.device).manual_seed(args.seed)
     params = api.init_params(cfg, gen, device=args.device)
     engine = Engine(cfg, params, max_new=args.max_new)

@@ -1,6 +1,6 @@
 """Public model API of the port: the language-model entry points of
 ``repro/models/api.py`` for the ported decoder-only archs (the dense stack,
-the zamba2 hybrid stack and the RWKV6 stack).
+the MoE stack, the zamba2 hybrid stack and the RWKV6 stack).
 
     params = init_params(cfg, generator, device)   # nested dict of tensors
     logits, aux = forward(params, cfg, batch)      # full sequence
@@ -57,11 +57,12 @@ def _embed_input(params, cfg, batch):
 
 
 def forward(params, cfg: ModelConfig, batch):
-    """Full-sequence logits (B,S,V) and the auxiliary loss (0 for dense)."""
+    """Full-sequence logits (B,S,V) and the auxiliary loss: the sum over
+    layers of the MoE load-balance loss (0 without MoE layers)."""
     h, cos, sin = _embed_input(params, cfg, batch)
-    h, _ = transformer.run_stack(params["stack"], h, cfg, cos=cos, sin=sin)
+    h, _, aux = transformer.run_stack(params["stack"], h, cfg, cos=cos,
+                                      sin=sin)
     h = rmsnorm(params["final_norm"], h, cfg.norm_eps)
-    aux = torch.zeros((), dtype=torch.float32, device=h.device)
     return unembed(params["tok"], h, cfg), aux
 
 
@@ -71,9 +72,9 @@ def prefill(params, cfg: ModelConfig, batch, reserve: Optional[int] = None):
     positions (default: the sequence length, as in the JAX package, where
     ``grow_cache`` pads it afterwards); positions past S are zeros."""
     h, cos, sin = _embed_input(params, cfg, batch)
-    h, cache = transformer.run_stack(params["stack"], h, cfg, cos=cos,
-                                     sin=sin, collect_cache=True,
-                                     reserve=reserve)
+    h, cache, _ = transformer.run_stack(params["stack"], h, cfg, cos=cos,
+                                        sin=sin, collect_cache=True,
+                                        reserve=reserve)
     h = rmsnorm(params["final_norm"], h[:, -1:], cfg.norm_eps)
     return unembed(params["tok"], h, cfg)[:, 0], cache
 
@@ -87,8 +88,9 @@ def decode_step(params, cfg: ModelConfig, cache, tokens, cur_len):
                                     device=tokens.device)
     h = embed(params["tok"], tokens, cfg)
     cos, sin = transformer.rope_tables(cfg, pos)
-    h, cache = transformer.run_stack(params["stack"], h, cfg, cos=cos,
-                                     sin=sin, cache=cache, cur_len=cur_len)
+    h, cache, _ = transformer.run_stack(params["stack"], h, cfg, cos=cos,
+                                        sin=sin, cache=cache,
+                                        cur_len=cur_len)
     h = rmsnorm(params["final_norm"], h, cfg.norm_eps)
     return unembed(params["tok"], h, cfg)[:, 0], cache
 

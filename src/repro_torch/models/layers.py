@@ -22,15 +22,38 @@ def dtype_of(name: str) -> torch.dtype:
     return DTYPES[name]
 
 
+# Largest f32 draw, in elements: a larger parameter is drawn slice by slice.
+# 2**26 holds one (5120, 8192) expert matrix of llama4-scout (42 M).
+DRAW_ELEMS = 1 << 26
+
+
 class InitMaker:
     """Draws parameters on ``device`` from ``generator``, with the scales of
     the JAX package's ``InitMaker.param``: a standard normal truncated to
-    [-2, 2], times ``scale`` or 1/sqrt(fan_in), drawn in f32 and cast."""
+    [-2, 2], times ``scale`` or 1/sqrt(fan_in), drawn in f32 and cast.
+
+    A parameter of more than ``DRAW_ELEMS`` elements is drawn slice by slice
+    along its leading axes into the preallocated result, so the f32
+    temporary stays at one slice: a stacked (layers, experts, D, F) bf16
+    expert weight would otherwise need twice its own size again in f32."""
 
     def __init__(self, generator: torch.Generator, dtype: torch.dtype, device):
         self.generator = generator
         self.dtype = dtype
         self.device = torch.device(device)
+
+    def _draw(self, out, scale: float) -> None:
+        """Fill ``out`` with scale * a truncated standard normal."""
+        if out.numel() > DRAW_ELEMS and out.dim() > 1:
+            row = out[0].numel()
+            for part in (out if row > DRAW_ELEMS
+                         else out.split(DRAW_ELEMS // row)):
+                self._draw(part, scale)
+            return
+        t = torch.empty(out.shape, dtype=torch.float32, device=self.device)
+        torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0,
+                                    generator=self.generator)
+        out.copy_(t.mul_(scale))
 
     def param(self, shape, init="normal", scale=None, fan_in=None):
         if init == "zeros":
@@ -42,10 +65,9 @@ class InitMaker:
                 fi = fan_in if fan_in is not None else (
                     shape[-2] if len(shape) >= 2 else shape[-1])
                 scale = 1.0 / np.sqrt(max(fi, 1))
-            t = torch.empty(shape, dtype=torch.float32, device=self.device)
-            torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0,
-                                        generator=self.generator)
-            return t.mul_(float(scale)).to(self.dtype)
+            out = torch.empty(shape, dtype=self.dtype, device=self.device)
+            self._draw(out, float(scale))
+            return out
         raise ValueError(init)
 
 

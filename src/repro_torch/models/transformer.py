@@ -5,8 +5,10 @@ The JAX package scans stacked (L, ...) parameters with ``lax.scan``; the port
 keeps the same stacked layout and loops over layers in Python. The same
 blocks serve the full-sequence forward (no cache), prefill (collect the
 cache) and decode (write the cache at ``cur_len`` and attend over it, or
-carry the recurrent states). The gemma2 local/global stack, MoE and enc-dec
-stacks wait for their slices (ROADMAP.md section 1).
+carry the recurrent states). The uniform stack takes the MoE FFN for the
+moe family, and every pass sums the layers' load-balance losses. The gemma2
+local/global stack and the enc-dec stacks wait for their slices (ROADMAP.md
+section 1).
 """
 from __future__ import annotations
 
@@ -17,12 +19,12 @@ from repro_torch.models import attention as attn
 from repro_torch.models import mamba2, rwkv6
 from repro_torch.models.layers import rmsnorm, rmsnorm_params, rope_cos_sin
 from repro_torch.models.mlp import mlp, mlp_params
+from repro_torch.models.moe import moe_ffn, moe_params
 
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise NotImplementedError for a config whose layers are not ported."""
     pending = [
-        (cfg.is_moe, "MoE FFN", "the MoE slice"),
         (cfg.is_encdec, "enc-dec stack", "the enc-dec and VLM slice"),
         (cfg.mrope_sections is not None, "M-RoPE", "the enc-dec and VLM slice"),
         (bool(cfg.local_global_period) or cfg.post_norm,
@@ -35,12 +37,13 @@ def check_supported(cfg: ModelConfig) -> None:
                 f"{where} (ROADMAP.md section 1)")
 
 
-def dense_block_params(mk, cfg: ModelConfig, stacked=()):
+def dense_block_params(mk, cfg: ModelConfig, stacked=(), moe: bool = False):
     return {
         "ln1": rmsnorm_params(mk, cfg.d_model, stacked),
         "attn": attn.attention_params(mk, cfg, stacked),
         "ln2": rmsnorm_params(mk, cfg.d_model, stacked),
-        "ffn": mlp_params(mk, cfg, stacked),
+        "ffn": (moe_params(mk, cfg, stacked) if moe
+                else mlp_params(mk, cfg, stacked)),
     }
 
 
@@ -72,14 +75,16 @@ def stack_params(mk, cfg: ModelConfig):
         if tail:
             p["mamba_tail"] = mamba_block_params(mk, cfg, stacked=(tail,))
         return p
-    return {"uniform": dense_block_params(mk, cfg, stacked=(cfg.num_layers,))}
+    return {"uniform": dense_block_params(mk, cfg, stacked=(cfg.num_layers,),
+                                          moe=cfg.is_moe)}
 
 
 def apply_dense_block(p, h, cfg: ModelConfig, *, cos, sin, window=None,
                       causal=True, cache=None, cur_len=None,
                       collect_cache=False):
-    """Returns (h, cache): the layer's fresh {k, v} when collecting, the
-    updated layer cache when decoding, else None."""
+    """Returns (h, cache, aux): the layer's fresh {k, v} when collecting,
+    the updated layer cache when decoding, else None; aux is the MoE
+    load-balance loss (None for a dense FFN)."""
     a_in = rmsnorm(p["ln1"], h, cfg.norm_eps)
     if collect_cache:
         q, k, v = attn.project_qkv(p["attn"], a_in, cfg, cos, sin)
@@ -91,8 +96,13 @@ def apply_dense_block(p, h, cfg: ModelConfig, *, cos, sin, window=None,
             p["attn"], a_in, cfg, cos=cos, sin=sin, causal=causal,
             window=window, cache=cache, cur_len=cur_len)
     h = h + a_out
-    h = h + mlp(p["ffn"], rmsnorm(p["ln2"], h, cfg.norm_eps), cfg)
-    return h, new_cache
+    m_in = rmsnorm(p["ln2"], h, cfg.norm_eps)
+    aux = None
+    if "router" in p["ffn"]:
+        m_out, aux = moe_ffn(p["ffn"], m_in, cfg)
+    else:
+        m_out = mlp(p["ffn"], m_in, cfg)
+    return h + m_out, new_cache, aux
 
 
 def apply_rwkv_block(p, h, cfg: ModelConfig, cache=None):
@@ -128,7 +138,8 @@ def _layer(tree, i):
 
 def run_stack(params, h, cfg: ModelConfig, *, cos, sin, cache=None,
               cur_len=None, collect_cache=False, reserve=None):
-    """Run the decoder stack. Returns (h, cache).
+    """Run the decoder stack. Returns (h, cache, aux), aux the sum of the
+    layers' MoE load-balance losses (0 without MoE layers).
 
     collect_cache: build the cache from this full pass (prefill), with room
     for ``reserve`` positions (default: the sequence length; zeros past it).
@@ -137,31 +148,36 @@ def run_stack(params, h, cfg: ModelConfig, *, cos, sin, cache=None,
     if collect_cache:
         B, S = h.shape[:2]
         cache = init_cache(cfg, B, max(reserve or S, S), device=h.device)
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
     if cfg.rwkv:
-        return _run_rwkv_stack(params["rwkv"], h, cfg, cache), cache
+        return _run_rwkv_stack(params["rwkv"], h, cfg, cache), cache, aux
     kw = dict(cos=cos, sin=sin, cur_len=cur_len, collect_cache=collect_cache)
     if cfg.family == "hybrid":
-        return _run_zamba_stack(params, h, cfg, cache, **kw), cache
+        return _run_zamba_stack(params, h, cfg, cache, **kw), cache, aux
     for i in range(cfg.num_layers):
-        h = _attention_layer(_layer(params["uniform"], i), h, cfg, cache, i,
-                             **kw)
-    return h, cache
+        h, a = _attention_layer(_layer(params["uniform"], i), h, cfg, cache,
+                                i, **kw)
+        if a is not None:
+            aux = aux + a
+    return h, cache, aux
 
 
 def _attention_layer(p, h, cfg, kv, i, *, cos, sin, cur_len, collect_cache):
     """One dense block against layer ``i`` of the stacked KV cache ``kv``
     (None: no cache). Prefill writes the fresh K/V at positions [0, S);
-    decode writes the new position in place."""
+    decode writes the new position in place. Returns (h, the layer's MoE
+    load-balance loss or None)."""
     layer_kv = None
     if kv is not None and not collect_cache:
         layer_kv = {"k": kv["k"][i], "v": kv["v"][i]}
-    h, new_kv = apply_dense_block(p, h, cfg, cos=cos, sin=sin, cache=layer_kv,
-                                  cur_len=cur_len, collect_cache=collect_cache)
+    h, new_kv, aux = apply_dense_block(p, h, cfg, cos=cos, sin=sin,
+                                       cache=layer_kv, cur_len=cur_len,
+                                       collect_cache=collect_cache)
     if collect_cache:
         S = h.shape[1]
         kv["k"][i, :, :S] = new_kv["k"]
         kv["v"][i, :, :S] = new_kv["v"]
-    return h
+    return h, aux
 
 
 def _run_rwkv_stack(params, h, cfg, cache):
@@ -212,7 +228,7 @@ def _run_zamba_stack(params, h, cfg, cache, **kw):
         group_p = _layer(params["mamba_main"], g)
         for i in range(ae):
             h = mamba(_layer(group_p, i), h, g * ae + i)
-        h = _attention_layer(params["shared_attn"], h, cfg, kv, g, **kw)
+        h = _attention_layer(params["shared_attn"], h, cfg, kv, g, **kw)[0]
     for t in range(tail):
         h = mamba(_layer(params["mamba_tail"], t), h, groups * ae + t)
     return h

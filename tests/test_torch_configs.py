@@ -8,7 +8,7 @@ from repro.configs import base as jax_base
 from repro_torch.configs import base
 
 PORTED = ["internlm2-1.8b", "qwen3-8b", "granite-20b", "zamba2-1.2b",
-          "rwkv6-3b"]
+          "kimi-k2-1t-a32b", "llama4-scout-17b-a16e", "rwkv6-3b"]
 
 
 @pytest.mark.parametrize("reduced", [False, True])

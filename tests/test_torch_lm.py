@@ -183,7 +183,30 @@ def test_lm_params_from_numpy_checks_the_layout():
 
 def test_unported_layers_raise():
     cfg = get_config("internlm2-1.8b", reduced=True)
-    for kw in (dict(num_experts=4), dict(post_norm=True),
-               dict(local_global_period=2), dict(mrope_sections=(4, 6, 6))):
+    for kw in (dict(post_norm=True), dict(local_global_period=2),
+               dict(mrope_sections=(4, 6, 6))):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             api.init_params(cfg.replace(**kw), device="cpu")
+
+
+@pytest.mark.parametrize("shape,dtype,budget", [
+    ((3, 4, 64, 32), torch.bfloat16, 64 * 32), ((300, 48), torch.float32, 960)])
+def test_init_maker_draws_large_params_slice_by_slice(monkeypatch, shape,
+                                                      dtype, budget):
+    """A parameter larger than DRAW_ELEMS is drawn slice by slice (here
+    slices of one (64, 32) matrix, and chunks of 20 rows of 48) and keeps
+    the JAX package's distribution: a standard normal truncated to [-2, 2],
+    times 1/sqrt(fan_in), whose standard deviation is 0.8796 of the scale;
+    the slices are independent draws."""
+    from repro_torch.models import layers
+    monkeypatch.setattr(layers, "DRAW_ELEMS", budget)
+    mk = layers.InitMaker(torch.Generator().manual_seed(0), dtype, "cpu")
+    t = mk.param(shape)
+    assert t.shape == shape and t.dtype == dtype
+    scale = 1.0 / np.sqrt(shape[-2])
+    x = t.float() / scale
+    assert float(x.abs().max()) <= 2.0 + 1e-2    # bf16 rounding of 2*scale
+    assert abs(float(x.std()) / 0.8796 - 1.0) < 0.03
+    assert abs(float(x.mean())) < 0.03
+    slices = x.reshape(-1, budget)
+    assert not torch.equal(slices[0], slices[1])
