@@ -18,8 +18,12 @@ Phases:
      that computes the same function, with CUDA events at the surrogate's
      chunk shape, beside the bound for that work.
   5. Hold the flash-attention kernel against its plain version on the six
-     cases of the JAX kernel tests, in f32 and bf16, and at the serving
-     shape (8, 2048, 16 heads, 8 KV heads, hd 128) in bf16.
+     cases of the JAX kernel tests, in f32 and bf16, at the serving shape
+     (8, 2048, 16 heads, 8 KV heads, hd 128) in bf16, and, in bf16 at hd
+     128, at shapes off the tensor-core kernel's 128-row and 128-key tiles
+     (Sq = Sk = 1000; Sq = 37), at q_offset 128 with Sk = 2 Sq, at GQA
+     group 5, and with a window and a softcap (a cap of 2 among them, which
+     moves these scores by O(1)).
   6. Build internlm2-1.8b at its published widths (24 layers, d_model 2048,
      vocab 92544) with seeded random f32 weights drawn on the card, and hold
      one prefill (B=2, S=1024) through the kernel against the same prefill
@@ -28,13 +32,16 @@ Phases:
      each, through ``repro_torch.serving.Engine`` in bf16. The flash launch
      count is set to 0 just before this phase and read just after it.
   8. Report: time the flash kernel, its plain version and PyTorch's
-     ``scaled_dot_product_attention`` at the serving shape, beside the bound.
+     ``scaled_dot_product_attention`` at the serving shape, beside the bound
+     and the kernel's TFLOP/s.
   9. Hold the Mamba2 SSD scan kernel against its plain version
      (``ssd_chunked``) with a random initial state on the three shapes of
      the JAX kernel tests, in f32 and bf16, and at zamba2-1.2b's serving
      shape (8, 2048, 64 heads, P=64, G=1, N=64, Q=128) in bf16 with a bf16
      log decay, as the model passes it; and the flash kernel at zamba2's
-     attention shape (8, 2048, 32 heads, 32 KV heads, hd 64) in bf16.
+     attention shape (8, 2048, 32 heads, 32 KV heads, hd 64) in bf16, and
+     at hd 64 off the tiles (Sq = Sk = 1000; Sq = 37) and with a window and
+     a softcap (of 50 and of 2).
  10. Build zamba2-1.2b at its published widths and depth (38 Mamba2 layers,
      d_model 2048, one shared attention block after every 6, vocab 32000)
      with seeded random f32 weights drawn on the card, and hold one prefill
@@ -70,9 +77,11 @@ Phases:
      llama4-scout's serving gives it, in bf16: prefill gate/up
      (16, 2048, 5120) x (16, 5120, 8192), prefill down (16, 2048, 8192) x
      (16, 8192, 5120), decode gate/up (16, 8, 5120) x (16, 5120, 8192),
-     decode down (16, 8, 8192) x (16, 8192, 5120); and the flash kernel at
-     llama4-scout's attention shape (8, 2048, 40 heads, 8 KV heads, hd 128)
-     in bf16.
+     decode down (16, 8, 8192) x (16, 8192, 5120); at both decode shapes
+     with a ``live`` mask of 8 of the 16 experts, whose rows of xe are zero
+     and whose weights are NaN (the kernel must write zeros there and read
+     none of them); and the flash kernel at llama4-scout's attention shape
+     (8, 2048, 40 heads, 8 KV heads, hd 128) in bf16.
  18. Build llama4-scout at its published widths (d_model 5120, 40 heads /
      8 KV heads of 128, 16 experts top-1 of d_ff 8192, vocab 202048) cut to
      4 layers, with seeded random f32 weights drawn on the card, and hold
@@ -83,18 +92,24 @@ Phases:
      expert in every layer. A different top-1 expert where the top two
      gates are more than 1e-5 apart is a fault; a flip at a smaller margin
      (a near-tie two correct passes may break differently) takes its batch
-     row out of the comparison, and is logged.
+     row out of the comparison, and is logged. Then one decode step at
+     batch 8 after a 16-token prompt, gmm against the plain einsums from
+     one cache, where top-1 routing leaves at least 8 experts empty in
+     every layer and the kernel skips them: logits and the cache.
  19. Serve: answer 3 requests of 8 prompts x 2048 tokens, 32 new tokens
      each, through ``Engine`` with llama4-scout cut to 12 layers (50.3 GiB
      of bf16 weights; the published 48 do not fit one card). Every MoE FFN
      of prefill and decode runs the gmm kernel and every prefill attention
      the flash kernel; both launch counts are set to 0 just before this
-     phase and read just after it.
+     phase and read just after it. The live experts of every MoE FFN call
+     (those the kernel does not skip) are counted and logged.
  20. Report: time the gmm kernel, its plain version and ``torch.bmm`` at
-     the prefill (gate) and decode shapes in bf16, and the flash kernel at
-     llama4-scout's attention shape, beside the bounds.
+     the prefill (gate) and decode shapes in bf16, decode twice (every
+     expert live, and 8 of 16 live), and the flash kernel at llama4-scout's
+     attention shape, beside the bounds and TFLOP/s.
 
-The kernels are built first, one ``nvcc`` per source, all in parallel.
+The kernels are built first, one ``nvcc`` per source, all in parallel;
+``ptxas`` reports each kernel's registers and spills.
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line and,
 last, ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
@@ -102,9 +117,11 @@ without a CUDA device or when any check fails.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -171,6 +188,21 @@ FA_SERVING = (SERVE_BATCH, SERVE_PROMPT, SERVE_PROMPT, 16, 8, 128, True,
 # The JAX kernel tests' tolerances: f32 kernel and plain version differ only
 # in summation order; in bf16 both round an f32 result to bf16.
 FA_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+# The bf16 tensor-core kernel off the serving shapes, at hd 128: ragged
+# 128-row and 128-key tiles, a 37-token prompt, q_offset 128 with
+# Sk = 2 Sq, GQA group 5, and a window with a softcap. The inputs' scores
+# have a standard deviation near 1, which a cap of 30 or 50 moves by about
+# 1e-2 and a cap of 2 by O(1): the cases with softcap 2 fail a kernel that
+# skips the cap.
+FA_BF16_CASES = [
+    (2, 1000, 1000, 16, 8, 128, True, None, None, 0),
+    (8, 37, 37, 16, 8, 128, True, None, None, 0),
+    (2, 512, 1024, 16, 8, 128, True, None, None, 128),
+    (2, 1024, 1024, 40, 8, 128, True, None, None, 0),
+    (2, 1024, 1024, 16, 8, 128, True, 256, 30.0, 0),
+    (2, 1024, 1024, 16, 8, 128, True, None, 2.0, 0),
+    (2, 1000, 1000, 16, 8, 128, True, 256, 2.0, 0),
+]
 PREFILL_SHAPE = (2, 1024)
 # f32 on both sides, TF32 off: the prefills differ only in the kernels'
 # summation orders (about 1e-7 relative per op), which many layers of random
@@ -197,6 +229,14 @@ SSD_TOL = {torch.float32: 1e-3, torch.bfloat16: 1e-1}
 # zamba2-1.2b's shared attention block at the serving batch: MHA, hd 64.
 FA_HYBRID = (SERVE_BATCH, SERVE_PROMPT, SERVE_PROMPT, 32, 32, 64, True,
              None, None, 0)
+# The same off the tiles and with a window and a softcap, at hd 64.
+FA_HYBRID_CASES = [
+    (2, 1000, 1000, 32, 32, 64, True, None, None, 0),
+    (8, 37, 37, 32, 32, 64, True, None, None, 0),
+    (2, 1024, 1024, 32, 32, 64, True, 256, 50.0, 0),
+    (2, 1024, 1024, 32, 32, 64, True, None, 2.0, 0),
+    (2, 1000, 1000, 32, 32, 64, True, 256, 2.0, 0),
+]
 
 RWKV_ARCH = "rwkv6-3b"
 # (B, L, H, K, V, Q, decay): log_w = -decay |normal|.
@@ -241,6 +281,11 @@ ROUTE_MARGIN = 1e-5
 # llama4-scout's prefill attention at the serving batch: GQA group 5.
 FA_MOE = (SERVE_BATCH, SERVE_PROMPT, SERVE_PROMPT, 40, 8, 128, True, None,
           None, 0)
+# Decode at batch 8 with top-1 routing leaves at least 8 of the 16 experts
+# without a token; the gmm kernel skips them (``live``).
+GMM_LIVE = 8
+# Phase 18's decode step follows a prompt of this many tokens.
+MOE_DECODE_PROMPT = 16
 
 
 def log(msg: str) -> None:
@@ -266,6 +311,25 @@ def median_ms(fn, reps: int = 10, warmup: int = 2) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def ptxas_summary(name: str) -> list[str]:
+    """Each kernel of library ``name`` with its registers and spills, from
+    the ``ptxas -v`` report of its build. A kernel that rebalances registers
+    with setmaxnreg shows its launch count here."""
+    out, spills = [], ""
+    for line in _build.ptxas_report(name).splitlines():
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            spills = f"spills {m.group(1)}/{m.group(2)} bytes stored/loaded"
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out.append(f"{m.group(1)} registers, {spills}")
+        m = re.search(r"entry function '\w*?\d((?:flash|gmm)_\w*?kernel)"
+                      r"(?:ILi(\d+)E)?", line)
+        if m:
+            out.append(m.group(1) + (f"<{m.group(2)}>" if m.group(2) else ""))
+    return [f"{k}: {r}" for k, r in zip(out[::2], out[1::2])]
 
 
 def kernel_inputs(B, N, Hd, dtype, gen):
@@ -423,6 +487,8 @@ def phase_flash_kernels() -> dict:
         for case in FA_CASES:
             errs[case, dtype] = hold_flash(case, dtype, gen)
     errs[FA_SERVING] = hold_flash(FA_SERVING, torch.bfloat16, gen)
+    for case in FA_BF16_CASES:
+        hold_flash(case, torch.bfloat16, gen)
     return {"max_abs_err": errs[FA_SERVING]}
 
 
@@ -460,12 +526,12 @@ def phase_lm_prefill() -> None:
 
 
 def hold_prefill(B, S, cfg, got, want, got_cache, want_cache,
-                 rows=None) -> None:
+                 rows=None, stage: str = "prefill") -> None:
     """Kernel prefill against plain prefill: logits and every cache leaf
     (every leaf is (layers, batch, ...)), of the batch rows ``rows`` only
     if given."""
     check(got.shape == (B, cfg.vocab_size) and bool(torch.isfinite(got).all()),
-          f"prefill logits {tuple(got.shape)} not finite or misshapen")
+          f"{stage} logits {tuple(got.shape)} not finite or misshapen")
     if rows is not None:
         def take(tree):
             return {k: take(v) if isinstance(v, dict) else v[:, rows]
@@ -479,7 +545,7 @@ def hold_prefill(B, S, cfg, got, want, got_cache, want_cache,
         err = (a.float() - b.float()).abs().max().item()
         check(torch.allclose(a.float(), b.float(), rtol=PREFILL_TOL,
                              atol=PREFILL_TOL),
-              f"f32 prefill {what}: kernel vs plain max abs err {err}")
+              f"f32 {stage} {what}: kernel vs plain max abs err {err}")
         log(f"  B={B} S={S} {what} {tuple(a.shape)}: kernel vs plain max abs "
             f"err {err:.3e} (rtol = atol = {PREFILL_TOL:.0e})")
 
@@ -594,7 +660,8 @@ def phase_flash_report() -> dict:
 
 
 def time_flash(case, seed: int) -> dict:
-    """Kernel, plain version and SDPA at ``case`` in bf16, beside the bound."""
+    """Kernel, plain version and SDPA at ``case`` in bf16, beside the
+    bound."""
     gen = torch.Generator(device=DEV).manual_seed(seed)
     (q, k, v), kw = fa_inputs(case, torch.bfloat16, gen)
     ms = median_ms(lambda: fa_ops.attention(q, k, v, impl="kernel", **kw))
@@ -608,8 +675,10 @@ def time_flash(case, seed: int) -> dict:
                                         kw["window"], kw["q_offset"])
     bytes_ms = moved / HBM_BYTES_PER_S * 1e3
     flops_ms = flops / BF16_FLOP_PER_S * 1e3
-    log(f"  {case[:6]}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-        f"scaled_dot_product_attention {library_ms:.3f} ms; bound "
+    log(f"  {case[:6]}: kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s), "
+        f"plain {plain_ms:.3f} ms, "
+        f"scaled_dot_product_attention {library_ms:.3f} ms "
+        f"({flops / library_ms / 1e9:.1f} TFLOP/s); bound "
         f"{max(bytes_ms, flops_ms):.3f} ms ({flops / 1e9:.1f} GFLOP at "
         f"{BF16_FLOP_PER_S / 1e12:.0f} TFLOP/s = {flops_ms:.3f} ms; "
         f"{moved / 2**20:.0f} MiB at {HBM_BYTES_PER_S / 1e12:.2f} TB/s = "
@@ -618,7 +687,7 @@ def time_flash(case, seed: int) -> dict:
             "bound_ms": max(bytes_ms, flops_ms),
             "bound_by": "bytes" if bytes_ms >= flops_ms else "operations",
             "library_ms": library_ms, "shape": list(case[:6]),
-            "dtype": "bfloat16"}
+            "dtype": "bfloat16", "tflops": flops / ms / 1e9}
 
 
 def ssd_inputs(case, dtype, gen, la_dtype=torch.float32):
@@ -668,6 +737,8 @@ def phase_ssd_kernels() -> dict:
             hold_ssd(case, dtype, gen)
     err = hold_ssd(SSD_SERVING, torch.bfloat16, gen, la_dtype=torch.bfloat16)
     flash_err = hold_flash(FA_HYBRID, torch.bfloat16, gen)
+    for case in FA_HYBRID_CASES:
+        hold_flash(case, torch.bfloat16, gen)
     return {"max_abs_err": err}, flash_err
 
 
@@ -929,6 +1000,29 @@ def hold_gmm(case, dtype, gen) -> float:
     return err
 
 
+def hold_gmm_live(case, gen) -> float:
+    """The kernel with ``live`` marking GMM_LIVE of the G experts at a
+    decode shape. The other experts' rows of xe are zero, as the dispatch
+    gives them, and their weights NaN: the kernel must write zeros there
+    without reading them, and agree with gmm_reference elsewhere."""
+    xe, w = gmm_inputs(case, torch.bfloat16, gen)
+    G = case[0]
+    live = torch.arange(G, device=DEV) % (G // GMM_LIVE) == 0
+    xe[~live] = 0
+    want = gmm_reference(xe, w)
+    w[~live] = float("nan")
+    got = gmm_ops.gmm(xe, w, impl="kernel", live=live)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    check(bool(torch.isfinite(got).all()) and not bool(got[~live].any())
+          and torch.allclose(got.float(), want.float(), rtol=0.0,
+                             atol=bf16_ulp(want)),
+          f"moe_gmm {case} live {GMM_LIVE} of {G}: max abs err {err}")
+    log(f"  moe_gmm {case} live {int(live.sum())} of {G} (the others' weights "
+        f"NaN) max abs err {err:.3e}, zeros where not live")
+    return err
+
+
 def phase_gmm_kernels() -> tuple[dict, float]:
     log("phase 17: hold moe_gmm against gmm_reference, and flash_attention "
         f"at {MOE_ARCH}'s attention shape")
@@ -940,6 +1034,8 @@ def phase_gmm_kernels() -> tuple[dict, float]:
     errs = {case: hold_gmm(case, torch.bfloat16, gen)
             for case in (GMM_PREFILL, GMM_PREFILL_DOWN, GMM_DECODE,
                          GMM_DECODE_DOWN)}
+    for case in (GMM_DECODE, GMM_DECODE_DOWN):
+        hold_gmm_live(case, gen)
     torch.cuda.empty_cache()
     flash_err = hold_flash(FA_MOE, torch.bfloat16, gen)
     return {"max_abs_err": errs[GMM_PREFILL],
@@ -992,7 +1088,6 @@ def phase_moe_prefill() -> None:
         torch.cuda.synchronize()
     finally:
         lm_moe._router = router
-    del params
     L = cfg.num_layers
     log(f"  moe_gmm launches: kernel prefill {g1 - g0}, plain prefill "
         f"{moe_gmm.LAUNCHES - g1}")
@@ -1020,32 +1115,134 @@ def phase_moe_prefill() -> None:
         f"; smallest top-1/top-2 gate margin {smallest:.3e}; holding rows {rows}")
     check(len(rows) > 0, "every batch row had a routing flip")
     hold_prefill(B, S, cfg, got, want, got_cache, want_cache, rows=rows)
+    del got_cache, want_cache
+    hold_moe_decode(params, cfg)
+
+
+@contextlib.contextmanager
+def recorded_live(lives: list):
+    """Append (rows of xe, ``live``) of every call of the gmm path's expert
+    FFN to ``lives``; ``live`` stays on the device (no host sync)."""
+    real = gmm_ops.expert_ffn
+
+    def recording(p, xe, c, live=None):
+        lives.append((xe.shape[1], live))
+        return real(p, xe, c, live=live)
+
+    gmm_ops.expert_ffn = recording
+    try:
+        yield lives
+    finally:
+        gmm_ops.expert_ffn = real
+
+
+def _clone_tree(tree):
+    return {k: _clone_tree(v) if isinstance(v, dict) else v.clone()
+            for k, v in tree.items()}
+
+
+def hold_moe_decode(params, cfg) -> None:
+    """One f32 decode step at the serving batch, through the gmm kernel
+    against the plain einsums from one cache: SERVE_BATCH tokens routed
+    top-1 leave at least 16 - SERVE_BATCH experts empty in every layer, and
+    the kernel skips them. Logits and every cache leaf are held."""
+    B, S = SERVE_BATCH, MOE_DECODE_PROMPT
+    tokens = torch.as_tensor(lm_tokens(np.random.default_rng(SEED + 22), B,
+                                       S + 1, cfg.vocab_size), device=DEV)
+    lives = []
+    with torch.inference_mode():
+        _, cache = lm_api.prefill(params, cfg, {"tokens": tokens[:, :S]},
+                                  reserve=S + 1)
+        plain_cache = _clone_tree(cache)
+        g0 = moe_gmm.LAUNCHES
+        with recorded_live(lives):
+            got, got_cache = lm_api.decode_step(params, cfg, cache,
+                                                tokens[:, S:], S)
+        g1 = moe_gmm.LAUNCHES
+        want, want_cache = lm_api.decode_step(
+            params, cfg.replace(moe_impl="dropping"), plain_cache,
+            tokens[:, S:], S)
+    torch.cuda.synchronize()
+    L, E = cfg.num_layers, cfg.num_experts
+    counts = [int(live.sum()) for _, live in lives]
+    log(f"  decode step, B={B} after {S} tokens: moe_gmm launches {g1 - g0}, "
+        f"plain {moe_gmm.LAUNCHES - g1}; live experts per layer {counts} "
+        f"of {E}")
+    check(g1 - g0 == 3 * L and moe_gmm.LAUNCHES == g1,
+          f"decode launches: moe_gmm {g1 - g0}, plain "
+          f"{moe_gmm.LAUNCHES - g1}; expected {3 * L} and 0")
+    check(len(lives) == L and all(m == B for m, _ in lives)
+          and max(counts) <= B < E,
+          f"decode expert FFN calls {[(m, c) for (m, _), c in zip(lives, counts)]}:"
+          f" expected {L} calls of {B} rows with at most {B} of {E} live")
+    hold_prefill(B, 1, cfg, got, want, got_cache, want_cache,
+                 stage="decode step")
 
 
 def phase_moe_serve() -> dict:
     cfg = get_config(MOE_ARCH).replace(num_layers=MOE_SERVE_LAYERS,
                                        attn_impl="kernel", moe_impl="gmm")
     L = cfg.num_layers
-    return serve(19, cfg, SEED + 18,
-                 {"moe_gmm": (moe_gmm, 3 * L * SERVE_MAX_NEW),
-                  "flash_attention": (flash_attention, L)})
+    lives = []
+    with recorded_live(lives):
+        out = serve(19, cfg, SEED + 18,
+                    {"moe_gmm": (moe_gmm, 3 * L * SERVE_MAX_NEW),
+                     "flash_attention": (flash_attention, L)})
+    out["moe_gmm"]["served_live_experts"] = live_counts(lives, cfg)
+    return out
 
 
-def time_gmm(case, seed: int) -> dict:
+def live_counts(lives, cfg) -> dict:
+    """The live experts of every expert FFN call of the served requests, in
+    prefill (GMM_PREFILL's rows) and decode (GMM_DECODE's rows) apart: the
+    share of the expert weights the gmm kernel skipped."""
+    L, E = cfg.num_layers, cfg.num_experts
+    calls = {"prefill": (GMM_PREFILL[1], SERVE_REQUESTS * L),
+             "decode": (GMM_DECODE[1], SERVE_REQUESTS * L * (SERVE_MAX_NEW - 1))}
+    out = {}
+    for stage, (rows, n) in calls.items():
+        sel = [live for m, live in lives if m == rows]
+        check(len(sel) == n, f"{len(sel)} {stage} expert FFN calls of {rows} "
+              f"rows, expected {n}")
+        counts = torch.stack(sel).sum(1).cpu().numpy()
+        hist = np.bincount(counts, minlength=E + 1).tolist()
+        log(f"  {stage}: live experts of {E} over {n} expert FFN calls: mean "
+            f"{counts.mean():.4f}, min {counts.min()}, max {counts.max()}; "
+            f"calls by live count 0..{E}: {hist}; the kernel read "
+            f"{counts.mean() / E:.4f} of the expert weights")
+        out[stage] = {"calls": n, "mean": float(counts.mean()),
+                      "min": int(counts.min()), "max": int(counts.max())}
+    check(len(lives) == sum(n for _, n in calls.values()),
+          f"{len(lives)} expert FFN calls, expected "
+          f"{sum(n for _, n in calls.values())}")
+    return out
+
+
+def time_gmm(case, seed: int, live_experts: int | None = None) -> dict:
     """Kernel, plain version and torch.bmm at ``case`` in bf16, beside the
-    bound."""
+    bound. With ``live_experts``, only that
+    many experts hold tokens (the others' rows are zero) and the kernel is
+    told so; the bound counts the live experts' weights and products."""
     gen = torch.Generator(device=DEV).manual_seed(seed)
     xe, w = gmm_inputs(case, torch.bfloat16, gen)
-    ms = median_ms(lambda: gmm_ops.gmm(xe, w, impl="kernel"))
+    G, M, D, F = case
+    live = None
+    if live_experts is not None:
+        live = torch.arange(G, device=DEV) % (G // live_experts) == 0
+        xe[~live] = 0
+    ms = median_ms(lambda: gmm_ops.gmm(xe, w, impl="kernel", live=live))
     plain_ms = median_ms(lambda: gmm_reference(xe, w))
     library_ms = median_ms(lambda: torch.bmm(xe, w))
-    G, M, D, F = case
-    moved = (xe.numel() + w.numel() + G * M * F) * xe.element_size()
-    flops = 2 * G * M * D * F
+    g = G if live is None else int(live.sum())
+    moved = (xe.numel() + g * D * F + G * M * F) * xe.element_size()
+    flops = 2 * g * M * D * F
     bytes_ms = moved / HBM_BYTES_PER_S * 1e3
     flops_ms = flops / BF16_FLOP_PER_S * 1e3
-    log(f"  {case}: kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s), "
-        f"plain {plain_ms:.3f} ms, torch.bmm {library_ms:.3f} ms; bound "
+    log(f"  {case}{'' if live is None else f' {g} of {G} live'}: kernel "
+        f"{ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s, "
+        f"{moved / ms / 1e9:.3f} TB/s), "
+        f"plain {plain_ms:.3f} ms, torch.bmm {library_ms:.3f} ms "
+        f"({2 * G * M * D * F / library_ms / 1e9:.1f} TFLOP/s); bound "
         f"{max(bytes_ms, flops_ms):.3f} ms ({flops / 1e12:.3f} TFLOP at "
         f"{BF16_FLOP_PER_S / 1e12:.0f} TFLOP/s = {flops_ms:.3f} ms; "
         f"{moved / 1e9:.3f} GB at {HBM_BYTES_PER_S / 1e12:.2f} TB/s = "
@@ -1053,14 +1250,21 @@ def time_gmm(case, seed: int) -> dict:
     return {"ms": ms, "plain_ms": plain_ms,
             "bound_ms": max(bytes_ms, flops_ms),
             "bound_by": "bytes" if bytes_ms >= flops_ms else "operations",
-            "library_ms": library_ms, "shape": list(case), "dtype": "bfloat16"}
+            "library_ms": library_ms, "shape": list(case), "dtype": "bfloat16",
+            "tflops": flops / ms / 1e9, "live_experts": g}
 
 
 def phase_gmm_report() -> tuple[dict, dict]:
     log(f"phase 20: time moe_gmm at the prefill {GMM_PREFILL} and decode "
-        f"{GMM_DECODE} shapes (bf16), and flash_attention at {FA_MOE[:6]}")
+        f"{GMM_DECODE} shapes (bf16; decode with every expert live and with "
+        f"{GMM_LIVE} of 16), and flash_attention at {FA_MOE[:6]}")
     gmm = time_gmm(GMM_PREFILL, SEED + 19)
     gmm["decode"] = time_gmm(GMM_DECODE, SEED + 20)
+    gmm["decode_live"] = time_gmm(GMM_DECODE, SEED + 20, GMM_LIVE)
+    check(gmm["decode_live"]["ms"] < gmm["decode"]["ms"],
+          f"gmm decode with {GMM_LIVE} of 16 experts live took "
+          f"{gmm['decode_live']['ms']:.3f} ms, all live "
+          f"{gmm['decode']['ms']:.3f} ms")
     torch.cuda.empty_cache()
     return gmm, time_flash(FA_MOE, SEED + 21)
 
@@ -1072,6 +1276,9 @@ def main() -> None:
     built = _build.build_libraries()
     log(f"built {', '.join(built)} from source, one nvcc each in parallel, "
         f"in {time.perf_counter() - t0:.1f} s")
+    for name in ("flash_attention", "moe_gmm"):
+        for line in ptxas_summary(name):
+            log(f"  ptxas {name}: {line}")
     sur = Surrogate(CONFIG, seed=SEED, device=DEV)
     chunk_batch = CONFIG.ensemble * sur.chunk_size(SPACE.max_atoms)
     kernel = phase_kernels(chunk_batch)
@@ -1139,7 +1346,7 @@ def main() -> None:
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/flash_attention/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/flash_attention.py:91",
-        **flash}, {
+        "design": "wgmma+tma", **flash}, {
         "name": "mamba2_ssd", "route": "cuda",
         "source": "src/repro_torch/kernels/mamba2_ssd/mamba2_ssd.cu",
         "replaces": "src/repro/kernels/mamba2_ssd/mamba2_ssd.py:74",
@@ -1151,7 +1358,7 @@ def main() -> None:
         "name": "moe_gmm", "route": "cuda",
         "source": "src/repro_torch/kernels/moe_gmm/moe_gmm.cu",
         "replaces": "src/repro/kernels/moe_gmm/moe_gmm.py:42",
-        **gmm}]}))
+        "design": "wgmma+tma", **gmm}]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

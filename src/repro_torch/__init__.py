@@ -6,3 +6,13 @@ framework-free ``repro`` module it keeps as its own copy. Entry points run
 on the CUDA device unless the caller asks for the CPU; hand-written Hopper
 kernels live under ``repro_torch.kernels`` and are built at first use.
 """
+import torch as _torch
+
+# torch's CPU exp, sin, cos, tanh, sqrt and other vector math call MKL's VML
+# where torch is built with MKL. When the first such call of a process is
+# made by several OpenMP threads at once, some threads' chunks can come back
+# accurate only to about 1e-4 relative, against 6e-8 on every later call
+# (MKL 2024.2 in the torch 2.13 CPU wheel on an AVX-512 Xeon: about one
+# fresh process in twelve). One call on one thread first avoids it for the
+# whole process.
+_torch.exp(_torch.zeros(1))

@@ -7,6 +7,16 @@ the sources and flags (so an edited source is rebuilt and an unchanged one
 is not), and the library is bound with ``ctypes``. ``build_libraries``
 starts one ``nvcc`` per library, all at once, and waits for all of them.
 Nothing is built when a module is imported, and a failed build raises.
+
+The bf16 kernels of ``flash_attention.cu`` and ``moe_gmm.cu`` include the
+shared Hopper header ``hopper.cuh`` (``HEADERS``): it enters every
+library's hash, so an edited header rebuilds them, but it is not a
+translation unit of its own. The header encodes TMA tensor maps with the
+driver's ``cuTensorMapEncodeTiled``, which it looks up in the loaded
+``libcuda.so.1`` with ``dlopen``/``dlsym`` (hence ``-ldl``), so no library
+links against ``libcuda``. ``-Xptxas=-v`` makes ``nvcc`` report each
+kernel's registers, shared memory and spills; the report is kept beside
+the library (``ptxas_report``).
 """
 from __future__ import annotations
 
@@ -20,7 +30,7 @@ from pathlib import Path
 KERNELS_DIR = Path(__file__).resolve().parent
 BUILD_DIR = KERNELS_DIR.parents[2] / "build" / "torch_kernels"
 CUDA_FLAGS = ["-O3", "-std=c++17", "-gencode=arch=compute_90a,code=sm_90a",
-              "-shared", "-Xcompiler", "-fPIC"]
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v", "-ldl"]
 
 # Sources of each kernel library, relative to ``repro_torch/kernels``.
 LIBRARIES = {
@@ -30,6 +40,8 @@ LIBRARIES = {
     "rwkv6_scan": ("rwkv6_scan/rwkv6_scan.cu",),
     "moe_gmm": ("moe_gmm/moe_gmm.cu",),
 }
+# Headers the sources include, relative to ``repro_torch/kernels``.
+HEADERS = ("hopper.cuh",)
 
 
 def _nvcc() -> str:
@@ -44,7 +56,7 @@ def _nvcc() -> str:
 
 def _target(name: str) -> Path:
     digest = hashlib.sha256(" ".join(CUDA_FLAGS).encode())
-    for src in LIBRARIES[name]:
+    for src in LIBRARIES[name] + HEADERS:
         digest.update((KERNELS_DIR / src).read_bytes())
     return BUILD_DIR / name / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
@@ -70,10 +82,16 @@ def build_libraries(names=tuple(LIBRARIES)) -> dict[str, Path]:
         if proc.returncode:
             failed.append(f"{name}: nvcc exit {proc.returncode}\n{out}")
         else:
+            target.with_suffix(".ptxas.txt").write_text(out)
             os.replace(tmp, target)
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
     return targets
+
+
+def ptxas_report(name: str) -> str:
+    """What ``ptxas -v`` said when the current build of ``name`` was made."""
+    return _target(name).with_suffix(".ptxas.txt").read_text()
 
 
 def load_library(name: str) -> ctypes.CDLL:

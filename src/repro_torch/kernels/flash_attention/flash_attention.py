@@ -6,7 +6,8 @@ flash_attention``.
 the kernel on the current stream and counts the launch in ``LAUNCHES``. It
 takes CUDA tensors only; the plain version is ``ref.attention_reference``.
 Unlike the TPU kernel it needs no ``Sq % block_q == 0``: the kernel masks a
-ragged last tile.
+ragged last tile. bf16 runs on the tensor cores (TMA-fed ``wgmma``), f32 on
+CUDA-core FMA.
 """
 from __future__ import annotations
 
@@ -62,12 +63,16 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True,
         raise ValueError(f"kernel takes head_dim in {HEAD_DIMS}, got {hd}")
     if B * H > 65535:
         raise ValueError(f"kernel takes B*H <= 65535, got {B * H}")
-    # float4 / 4 x bf16 loads: head dim contiguous, rows 16-byte aligned
+    # f32: float4 loads; bf16: TMA boxes. Either way the head dim is
+    # contiguous, the base 16-byte aligned and every stride a multiple of
+    # 16 bytes (4 f32 or 8 bf16 elements). Nothing is copied to get there.
+    align = 16 // q.element_size()
     for name, t in (("q", q), ("k", k), ("v", v)):
-        if (t.stride(3) != 1 or any(s % 4 for s in t.stride()[:3])
+        if (t.stride(3) != 1 or any(s % align for s in t.stride()[:3])
                 or t.data_ptr() % 16):
-            raise ValueError(f"{name} needs a contiguous head dim and rows "
-                             f"aligned to 16 bytes, got strides {t.stride()}")
+            raise ValueError(f"{name} needs a contiguous head dim, a 16-byte "
+                             f"aligned base and strides that are multiples "
+                             f"of {align} elements, got strides {t.stride()}")
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1, got {window}")
     if softcap is not None and softcap <= 0:

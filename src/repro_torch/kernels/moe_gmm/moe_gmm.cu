@@ -9,29 +9,38 @@
 // store (ref.gmm_reference). The TPU kernel carries the f32 sum over its
 // sequential D grid axis in a VMEM scratch; here blocks run in no order, so
 // each block owns one output tile and loops over the D tiles itself, with
-// the sum in registers. Row tiles are ragged (M = B*C slots of every batch
-// row, any count: 2048, 160, 53, 8, 1): rows >= M are zero-filled at the
-// load and skipped at the store. D and F must be multiples of 16.
+// the sum in registers. Row counts are ragged (M = B*C slots of every batch
+// row, any count: 2048, 160, 53, 8, 1). D and F must be multiples of 16.
+// `live` (G bytes, or null) marks the experts that hold a token: a block of
+// an expert with live[g] == 0 writes zeros and reads nothing. Such an
+// expert's rows of xe are the dispatch's zero row, so the output is the
+// same.
 //
 // Bound. At the serving prefill (G=16 experts, M=2048 slots, D=5120,
 // F=8192, bf16) one call is 2 G M D F = 2.75 TFLOP against 2.21 GB of
 // bytes: 2.78 ms at the 989 TFLOP/s bf16 tensor-core peak, 0.66 ms at
-// 3.35 TB/s, so operations bound it; the bf16 path therefore runs on the
-// tensor cores (nvcuda::wmma 16x16x16 bf16 fragments, f32 accumulators;
-// products of bf16 are exact in f32, so it differs from the plain version
-// only in summation order). At decode (M=8: one slot per batch row) the
-// same call reads 1.34 GB of weights for 2.7 GFLOP: 0.40 ms at 3.35 TB/s,
-// so bytes bound it. There each weight byte is read once per call (every
-// F tile of every group is one block, and xe's few rows are shared), the
-// loads are 16-byte cp.async copies kept one tile ahead of the products,
-// and a warp skips the fragments whose rows all lie past M, so the empty
-// rows of a 128-row tile cost no tensor-core work. wgmma, TMA and warp
-// specialisation are later work.
+// 3.35 TB/s, so operations bound it. At decode (M=8: one slot per batch
+// row) the same call reads 1.34 GB of weights for 2.7 GFLOP: 0.40 ms at
+// 3.35 TB/s with every expert live, so bytes bound it, and skipping the
+// experts that hold no token (at least 8 of 16 at batch 8, top-1) cuts the
+// bytes.
 //
-// bf16 design: 256 threads per 128x128 output tile, 8 warps of 64x32
-// (4x2 fragments); D is stepped 32 at a time through two shared-memory
-// stages (cp.async, zero-fill past M and D). The f32 tile goes through a
-// 1 KiB per-warp shared buffer to bf16 and is written 16 bytes per lane.
+// bf16 design (Hopper TMA + wgmma, hopper.cuh): one 128 x 256 output tile
+// per block of three warpgroups. One producer thread (its warpgroup
+// otherwise idle, down to 40 registers) streams K tiles of 64
+// through a ring of 4 shared-memory stages (48 KiB each: xe 128 x 64,
+// K-major; w 64 x 256 as four 64-column boxes, F-major) with TMA, each
+// stage guarded by a full and an empty mbarrier; 3-D tensor maps over
+// (D, M, G) and (F, D, G) keep a box inside one expert, and TMA zero-fills
+// the ragged M, D and F tails. Two consumer warpgroups each own 64 rows and
+// run wgmma m64n256k16 (B through the transpose bit) with the f32 sum in
+// 128 registers a thread, keeping one stage's products in flight while the
+// next is issued; setmaxnreg moves registers from the producer to them. A
+// warpgroup whose rows all lie past M issues no wgmma (decode: one of the
+// two). At decode the 4 stages keep 128 KiB of weights in flight per SM,
+// well above what the 3.35 TB/s bound needs. The epilogue rounds to bf16
+// into a padded shared tile and writes rows of 16-byte stores, clipped at M
+// and F.
 //
 // f32 design: CUDA-core FMA, no TF32 (the f32 parity checks need ~1e-5):
 // 256 threads per 64x64 tile, 4x4 outputs per thread, D stepped 16 at a
@@ -41,22 +50,126 @@
 // stream and the function returns cudaGetLastError().
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 
 #include <cstdint>
 
+#include "../hopper.cuh"
+
 namespace {
 
-using namespace nvcuda;
-
 struct Bf16Tile {
-  static constexpr int BM = 128, BN = 128, BK = 32;
-  static constexpr int kThreads = 256;     // 8 warps: 2 along M x 4 along N
-  static constexpr int WM = 64, WN = 32;   // warp tile
-  static constexpr int FM = WM / 16, FN = WN / 16;
-  static constexpr int AS = BK + 8;        // padded shared row of A
-  static constexpr int BS = BN + 8;        // padded shared row of B
+  static constexpr int BM = 128, BN = 256, BK = 64, kStages = 4;
+  static constexpr int kConsumers = 2;                   // warpgroups of 64 rows
+  static constexpr int kThreads = 128 * (kConsumers + 1);  // + the producer's
+  static constexpr int A_BYTES = BM * BK * 2;            // 16 KiB, K-major
+  static constexpr int B_BOX = BK * 64 * 2;              // 8 KiB: 64 columns
+  static constexpr int B_BYTES = BN / 64 * B_BOX;        // 32 KiB, F-major
+  static constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
+  static constexpr int CS = BN + 8;                      // padded bf16 row of C
+  static constexpr int SMEM = kStages * STAGE_BYTES + 1024;  // + alignment
 };
+static_assert(Bf16Tile::BM * Bf16Tile::CS * 2 <=
+                  Bf16Tile::kStages * Bf16Tile::STAGE_BYTES,
+              "the C tile reuses the ring");
+
+__global__ void __launch_bounds__(Bf16Tile::kThreads, 1)
+gmm_bf16_kernel(const __grid_constant__ CUtensorMap xmap,
+                const __grid_constant__ CUtensorMap wmap,
+                __nv_bfloat16* __restrict__ out,
+                const uint8_t* __restrict__ live, int M, int D, int F) {
+  using T = Bf16Tile;
+  const int m0 = blockIdx.x * T::BM, n0 = blockIdx.y * T::BN;
+  const int g = blockIdx.z;
+  __nv_bfloat16* og = out + static_cast<long long>(g) * M * F;
+  if (live != nullptr && !live[g]) {
+    // an expert that holds no token: its rows of xe are zero, and so is out
+    const int rows = min(T::BM, M - m0), chunks = min(T::BN, F - n0) / 8;
+    for (int i = threadIdx.x; i < rows * chunks; i += T::kThreads)
+      *reinterpret_cast<uint4*>(og + static_cast<long long>(m0 + i / chunks) * F +
+                                n0 + (i % chunks) * 8) = make_uint4(0, 0, 0, 0);
+    return;
+  }
+
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = hopper::align1024(smem_raw);
+  __shared__ __align__(8) uint64_t full[T::kStages], empty[T::kStages];
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < T::kStages; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], T::kConsumers);
+    }
+    hopper::fence_mbar_init();
+  }
+  __syncthreads();
+
+  const int nk = (D + T::BK - 1) / T::BK;
+  const int wg = threadIdx.x / 128;
+  if (wg == T::kConsumers) {
+    // producer: one thread keeps the ring full
+    hopper::reg_dealloc<40>();
+    if (threadIdx.x == 128 * T::kConsumers) {
+      for (int t = 0; t < nk; ++t) {
+        const int s = t % T::kStages;
+        if (t >= T::kStages) hopper::mbar_wait(&empty[s], (t / T::kStages - 1) & 1);
+        uint8_t* a = smem + s * T::STAGE_BYTES;
+        hopper::mbar_expect_tx(&full[s], T::STAGE_BYTES);
+        hopper::tma_load_3d(a, &xmap, &full[s], t * T::BK, m0, g);
+        for (int c = 0; c < T::BN / 64; ++c)
+          hopper::tma_load_3d(a + T::A_BYTES + c * T::B_BOX, &wmap, &full[s],
+                              n0 + 64 * c, t * T::BK, g);
+      }
+    }
+  } else {
+    hopper::reg_alloc<232>();
+    float acc[T::BN / 2];
+#pragma unroll
+    for (int i = 0; i < T::BN / 2; ++i) acc[i] = 0.f;
+    const bool rows_live = m0 + 64 * wg < M;
+    for (int t = 0; t < nk; ++t) {
+      const int s = t % T::kStages;
+      hopper::mbar_wait(&full[s], (t / T::kStages) & 1);
+      if (rows_live) {
+        const uint8_t* a = smem + s * T::STAGE_BYTES + wg * 64 * 128;
+        const uint8_t* b = smem + s * T::STAGE_BYTES + T::A_BYTES;
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < T::BK / 16; ++kk)
+          hopper::Wgmma<T::BN>::ss<1>(
+              acc, hopper::make_desc(a + 32 * kk, 16, 1024, hopper::kB128),
+              hopper::make_desc(b + 16 * 128 * kk, T::B_BOX, 1024, hopper::kB128), 1);
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<1>();  // the previous stage's products are done
+      }
+      if (t > 0 && threadIdx.x % 128 == 0)
+        hopper::mbar_arrive(&empty[(t - 1) % T::kStages]);
+    }
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(acc);
+
+    // epilogue: bf16 into a padded shared tile over the ring (both consumer
+    // warpgroups are done reading it), then rows of 16-byte stores
+    hopper::named_barrier(1, 128 * T::kConsumers);
+    if (rows_live) {
+      __nv_bfloat16* ct = reinterpret_cast<__nv_bfloat16*>(smem);
+      const int tid = threadIdx.x % 128, lane = tid % 32;
+      const int r = wg * 64 + (tid / 32) * 16 + lane / 4, c = 2 * (lane % 4);
+#pragma unroll
+      for (int j = 0; j < T::BN / 8; ++j) {
+        *reinterpret_cast<__nv_bfloat162*>(ct + r * T::CS + 8 * j + c) =
+            __floats2bfloat162_rn(acc[4 * j], acc[4 * j + 1]);
+        *reinterpret_cast<__nv_bfloat162*>(ct + (r + 8) * T::CS + 8 * j + c) =
+            __floats2bfloat162_rn(acc[4 * j + 2], acc[4 * j + 3]);
+      }
+      hopper::named_barrier(2 + wg, 128);
+      for (int i = tid; i < 64 * (T::BN / 8); i += 128) {
+        const int row = wg * 64 + i / (T::BN / 8), col = (i % (T::BN / 8)) * 8;
+        if (m0 + row < M && n0 + col < F)
+          *reinterpret_cast<uint4*>(og + static_cast<long long>(m0 + row) * F + n0 + col) =
+              *reinterpret_cast<const uint4*>(ct + row * T::CS + col);
+      }
+    }
+  }
+}
 
 struct F32Tile {
   static constexpr int BM = 64, BN = 64, BK = 16;
@@ -64,123 +177,10 @@ struct F32Tile {
   static constexpr int PAD = 4;
 };
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           bool valid) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  const int n = valid ? 16 : 0;  // 0: no bytes read, 16 zero bytes written
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(gmem), "r"(n));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__global__ void __launch_bounds__(Bf16Tile::kThreads)
-gmm_bf16_kernel(const __nv_bfloat16* __restrict__ xe,
-                const __nv_bfloat16* __restrict__ w,
-                __nv_bfloat16* __restrict__ out, int M, int D, int F) {
-  using T = Bf16Tile;
-  __shared__ __align__(128) __nv_bfloat16 As[2][T::BM * T::AS];
-  __shared__ __align__(128) __nv_bfloat16 Bs[2][T::BK * T::BS];
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int wm = warp / 4, wn = warp % 4;
-  const int n0 = blockIdx.x * T::BN, m0 = blockIdx.y * T::BM;
-  const long long g = blockIdx.z;
-  const __nv_bfloat16* xg = xe + g * M * D;
-  const __nv_bfloat16* wg = w + g * D * F;
-
-  auto load_tile = [&](int stage, int k0) {
-    // A: 128 rows x 32 columns = 512 chunks of 8; B: 32 rows x 128 columns
-#pragma unroll
-    for (int c = tid; c < T::BM * T::BK / 8; c += T::kThreads) {
-      const int row = c / (T::BK / 8), kc = (c % (T::BK / 8)) * 8;
-      const bool ok = m0 + row < M && k0 + kc < D;
-      const __nv_bfloat16* src = ok ? xg + (long long)(m0 + row) * D + k0 + kc : xg;
-      cp_async16(&As[stage][row * T::AS + kc], src, ok);
-    }
-#pragma unroll
-    for (int c = tid; c < T::BK * T::BN / 8; c += T::kThreads) {
-      const int row = c / (T::BN / 8), nc = (c % (T::BN / 8)) * 8;
-      const bool ok = k0 + row < D && n0 + nc < F;
-      const __nv_bfloat16* src = ok ? wg + (long long)(k0 + row) * F + n0 + nc : wg;
-      cp_async16(&Bs[stage][row * T::BS + nc], src, ok);
-    }
-  };
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[T::FM][T::FN];
-#pragma unroll
-  for (int i = 0; i < T::FM; ++i)
-#pragma unroll
-    for (int j = 0; j < T::FN; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-  // fragments (of 16 rows) of this warp that hold at least one row < M
-  const int live = min(T::FM, max(0, (M - m0 - wm * T::WM + 15) / 16));
-  const int nk = (D + T::BK - 1) / T::BK;
-  load_tile(0, 0);
-  cp_async_commit();
-  for (int kt = 0; kt < nk; ++kt) {
-    const int stage = kt & 1;
-    if (kt + 1 < nk) {
-      load_tile(stage ^ 1, (kt + 1) * T::BK);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < T::BK; kk += 16) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> b[T::FN];
-#pragma unroll
-      for (int j = 0; j < T::FN; ++j)
-        wmma::load_matrix_sync(b[j], &Bs[stage][kk * T::BS + wn * T::WN + j * 16], T::BS);
-#pragma unroll
-      for (int i = 0; i < T::FM; ++i) {
-        if (i < live) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
-          wmma::load_matrix_sync(a, &As[stage][(wm * T::WM + i * 16) * T::AS + kk], T::AS);
-#pragma unroll
-          for (int j = 0; j < T::FN; ++j) wmma::mma_sync(acc[i][j], a, b[j], acc[i][j]);
-        }
-      }
-    }
-    __syncthreads();  // this stage's readers are done before it is refilled
-  }
-
-  // epilogue: each fragment through a per-warp 16x16 f32 buffer (reusing A's
-  // shared memory) to bf16, two lanes per row, 8 columns (16 bytes) a lane
-  float* buf = reinterpret_cast<float*>(&As[0][0]) + warp * 256;
-  const int r = lane >> 1, c = (lane & 1) * 8;
-#pragma unroll
-  for (int i = 0; i < T::FM; ++i) {
-#pragma unroll
-    for (int j = 0; j < T::FN; ++j) {
-      const int row0 = m0 + wm * T::WM + i * 16, col0 = n0 + wn * T::WN + j * 16;
-      if (i >= live || col0 >= F) continue;  // warp-uniform
-      wmma::store_matrix_sync(buf, acc[i][j], 16, wmma::mem_row_major);
-      __syncwarp();
-      if (row0 + r < M) {
-        __align__(16) __nv_bfloat16 v[8];
-#pragma unroll
-        for (int q = 0; q < 8; ++q) v[q] = __float2bfloat16_rn(buf[r * 16 + c + q]);
-        *reinterpret_cast<uint4*>(out + (g * M + row0 + r) * F + col0 + c) =
-            *reinterpret_cast<const uint4*>(v);
-      }
-      __syncwarp();
-    }
-  }
-}
-
 __global__ void __launch_bounds__(F32Tile::kThreads)
 gmm_f32_kernel(const float* __restrict__ xe, const float* __restrict__ w,
-               float* __restrict__ out, int M, int D, int F) {
+               float* __restrict__ out, const uint8_t* __restrict__ live, int M,
+               int D, int F) {
   using T = F32Tile;
   __shared__ __align__(16) float As[T::BK][T::BM + T::PAD];  // A transposed
   __shared__ __align__(16) float Bs[T::BK][T::BN + T::PAD];
@@ -196,7 +196,9 @@ gmm_f32_kernel(const float* __restrict__ xe, const float* __restrict__ w,
   const bool a_ok = m0 + ar < M, b_ok = n0 + bn < F;
 
   float acc[4][4] = {};
-  for (int k0 = 0; k0 < D; k0 += T::BK) {  // D % 16 == 0: no ragged k tile
+  // an expert that holds no token: its rows of xe are zero, and so is out
+  const int d_end = live != nullptr && !live[g] ? 0 : D;
+  for (int k0 = 0; k0 < d_end; k0 += T::BK) {  // D % 16 == 0: no ragged k tile
     const float4 a = a_ok ? *reinterpret_cast<const float4*>(
                                 xg + (long long)(m0 + ar) * D + k0 + ak)
                           : make_float4(0.f, 0.f, 0.f, 0.f);
@@ -233,28 +235,52 @@ gmm_f32_kernel(const float* __restrict__ xe, const float* __restrict__ w,
   }
 }
 
+
+int launch_bf16(const void* xe, const void* w, void* out, const uint8_t* live,
+                int G, int M, int D, int F, cudaStream_t stream) {
+  using T = Bf16Tile;
+  CUtensorMap xmap, wmap;
+  const cuuint64_t xdims[3] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(M),
+                               static_cast<cuuint64_t>(G)};
+  const cuuint64_t xstrides[2] = {2ull * D, 2ull * M * D};
+  const cuuint32_t xbox[3] = {T::BK, T::BM, 1};
+  const cuuint64_t wdims[3] = {static_cast<cuuint64_t>(F), static_cast<cuuint64_t>(D),
+                               static_cast<cuuint64_t>(G)};
+  const cuuint64_t wstrides[2] = {2ull * F, 2ull * D * F};
+  const cuuint32_t wbox[3] = {64, T::BK, 1};
+  int err = hopper::make_bf16_map(&xmap, xe, 3, xdims, xstrides, xbox,
+                                  CU_TENSOR_MAP_SWIZZLE_128B);
+  if (err == 0)
+    err = hopper::make_bf16_map(&wmap, w, 3, wdims, wstrides, wbox,
+                                CU_TENSOR_MAP_SWIZZLE_128B);
+  if (err != 0) return err;
+  const cudaError_t attr = cudaFuncSetAttribute(
+      gmm_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const dim3 grid((M + T::BM - 1) / T::BM, (F + T::BN - 1) / T::BN, G);
+  gmm_bf16_kernel<<<grid, T::kThreads, T::SMEM, stream>>>(
+      xmap, wmap, static_cast<__nv_bfloat16*>(out), live, M, D, F);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // xe (G,M,D), w (G,D,F), out (G,M,F), all contiguous, 16-byte aligned and
 // of one dtype (bf16 if bf16 != 0, else f32); D % 16 == 0, F % 16 == 0.
-extern "C" int moe_gmm_fwd(const void* xe, const void* w, void* out, int G,
-                           int M, int D, int F, int bf16, void* stream) {
+// live: G bytes on the device (nonzero: the expert holds a token), or null
+// for all experts live.
+extern "C" int moe_gmm_fwd(const void* xe, const void* w, void* out,
+                           const void* live, int G, int M, int D, int F,
+                           int bf16, void* stream) {
   if (G < 1 || M < 1 || D < 16 || F < 16 || D % 16 || F % 16)
     return static_cast<int>(cudaErrorInvalidValue);
   const auto s = static_cast<cudaStream_t>(stream);
-  if (bf16) {
-    using T = Bf16Tile;
-    const dim3 grid((F + T::BN - 1) / T::BN, (M + T::BM - 1) / T::BM, G);
-    gmm_bf16_kernel<<<grid, T::kThreads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(xe),
-        static_cast<const __nv_bfloat16*>(w),
-        static_cast<__nv_bfloat16*>(out), M, D, F);
-  } else {
-    using T = F32Tile;
-    const dim3 grid((F + T::BN - 1) / T::BN, (M + T::BM - 1) / T::BM, G);
-    gmm_f32_kernel<<<grid, T::kThreads, 0, s>>>(
-        static_cast<const float*>(xe), static_cast<const float*>(w),
-        static_cast<float*>(out), M, D, F);
-  }
+  const auto* lv = static_cast<const uint8_t*>(live);
+  if (bf16) return launch_bf16(xe, w, out, lv, G, M, D, F, s);
+  using T = F32Tile;
+  const dim3 grid((F + T::BN - 1) / T::BN, (M + T::BM - 1) / T::BM, G);
+  gmm_f32_kernel<<<grid, T::kThreads, 0, s>>>(
+      static_cast<const float*>(xe), static_cast<const float*>(w),
+      static_cast<float*>(out), lv, M, D, F);
   return static_cast<int>(cudaGetLastError());
 }

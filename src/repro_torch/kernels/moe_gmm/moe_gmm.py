@@ -5,7 +5,9 @@ replaces ``repro/kernels/moe_gmm/moe_gmm.py::gmm``.
 on the current stream and counts the launch in ``LAUNCHES``. It takes CUDA
 tensors only; the plain version is ``ref.gmm_reference``. Unlike the TPU
 kernel it needs no row count divisible by a block: the kernel masks a
-ragged last row tile. D and F must be multiples of 16.
+ragged last row tile. D and F must be multiples of 16. ``live`` (G,) bool
+marks the groups that hold a token; the kernel writes zeros for the others
+and reads none of their weights.
 """
 from __future__ import annotations
 
@@ -26,14 +28,16 @@ def library() -> ctypes.CDLL:
     """Build the kernel from ``moe_gmm.cu`` at the first call and bind it."""
     lib = _build.load_library("moe_gmm")
     fn = lib.moe_gmm_fwd
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib
 
 
-def gmm_cuda(xe, w):
+def gmm_cuda(xe, w, live=None):
     """xe (G,M,D) @ w (G,D,F) -> (G,M,F) in xe's dtype; both f32 or both
-    bf16, contiguous, on one CUDA device."""
+    bf16, contiguous, on one CUDA device. ``live``: None (every group) or a
+    (G,) bool tensor on that device; a group with ``live[g]`` False must
+    have all-zero rows of xe, and gets zeros."""
     global LAUNCHES
     if not (xe.is_cuda and w.device == xe.device):
         raise ValueError("gmm_cuda needs both inputs on one CUDA device, got "
@@ -53,10 +57,17 @@ def gmm_cuda(xe, w):
     for name, t in (("xe", xe), ("w", w)):
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
+    if live is not None and (live.dtype != torch.bool or live.shape != (G,)
+                             or live.device != xe.device
+                             or not live.is_contiguous()):
+        raise ValueError(f"live must be a contiguous ({G},) bool tensor on "
+                         f"{xe.device}, got {live.dtype} {tuple(live.shape)} "
+                         f"on {live.device}")
     out = torch.empty(G, M, F, dtype=xe.dtype, device=xe.device)
     with torch.cuda.device(xe.device):
         err = library().moe_gmm_fwd(
-            xe.data_ptr(), w.data_ptr(), out.data_ptr(), G, M, D, F,
+            xe.data_ptr(), w.data_ptr(), out.data_ptr(),
+            None if live is None else live.data_ptr(), G, M, D, F,
             int(xe.dtype == torch.bfloat16),
             torch.cuda.current_stream().cuda_stream)
     if err:

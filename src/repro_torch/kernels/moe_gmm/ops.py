@@ -21,35 +21,41 @@ from repro_torch.models.mlp import _ACTS
 __all__ = ["expert_ffn", "gmm", "moe_ffn"]
 
 
-def gmm(xe, w, *, impl: str | None = None):
+def gmm(xe, w, *, impl: str | None = None, live=None):
     """xe (G,M,D) @ w (G,D,F) -> (G,M,F) in xe's dtype.
 
     impl="kernel" launches the CUDA kernel and raises on CPU tensors;
     impl="ref" is the plain version; None picks the kernel for CUDA tensors
-    and the plain version for CPU tensors."""
+    and the plain version for CPU tensors. ``live`` (G,) bool marks the
+    groups whose rows of xe are not all zero: the kernel skips the others
+    (zeros, no weight read); the plain version is not given it and computes
+    every group, which gives the same zeros."""
     if impl is None:
         impl = "kernel" if xe.is_cuda else "ref"
     if impl == "kernel":
         if not xe.is_cuda:
             raise ValueError("impl='kernel' needs CUDA tensors; "
                              "use impl='ref' on the CPU")
-        return moe_gmm.gmm_cuda(xe, w)
+        return moe_gmm.gmm_cuda(xe, w, live)
     if impl == "ref":
         return gmm_reference(xe, w)
     raise ValueError(f"unknown impl {impl!r}")
 
 
-def expert_ffn(params, xe, cfg):
+def expert_ffn(params, xe, cfg, live=None):
     """xe (E, N, D) -> (E, N, D): the per-expert gated MLP as three ``gmm``
     calls on the untiled (E, D, F) weights, with the JAX package's casts
-    (activation and product in f32, then the compute dtype)."""
+    (activation and product in f32, then the compute dtype). ``live`` (E,)
+    bool, from ``models.moe.dispatch``, marks the experts that hold a token;
+    every call skips the others, whose rows are zero and stay zero (the
+    configs' activations map 0 to 0)."""
     cd = dtype_of(cfg.compute_dtype)
-    g = gmm(xe, params["wi_gate"].to(cd))
-    u = gmm(xe, params["wi_up"].to(cd))
+    g = gmm(xe, params["wi_gate"].to(cd), live=live)
+    u = gmm(xe, params["wi_up"].to(cd), live=live)
     return gmm((_ACTS[cfg.act](g.float()) * u.float()).to(cd),
-               params["wo"].to(cd))
+               params["wo"].to(cd), live=live)
 
 
 def moe_ffn(params, x, cfg):
     """x (B,S,D) -> (y (B,S,D), aux_loss)."""
-    return moe_mod.dispatch(params, x, cfg, expert_ffn)
+    return moe_mod.dispatch(params, x, cfg, expert_ffn, pass_live=True)

@@ -128,9 +128,14 @@ def _combine(y_sel, topw, keep):
     return (y_sel * w).reshape(B, S, K, -1).sum(2)
 
 
-def dispatch(params, x, cfg: ModelConfig, expert_ffn):
-    """Scatter/gather dispatch around ``expert_ffn`` (params, xe (E, N, D))
-    -> (E, N, D). x (B,S,D) -> (y (B,S,D), aux_loss)."""
+def dispatch(params, x, cfg: ModelConfig, expert_ffn, *,
+             pass_live: bool = False):
+    """Scatter/gather dispatch around ``expert_ffn`` (params, xe (E, N, D),
+    cfg) -> (E, N, D). x (B,S,D) -> (y (B,S,D), aux_loss). With
+    ``pass_live``, expert_ffn also gets ``live`` (E,) bool: whether expert e
+    holds a token in some row. The rows of an expert that holds none are all
+    the zero row, and the kernel path skips it. It is computed on the
+    device, with no host sync."""
     B, S, D = x.shape
     E = cfg.num_experts
     C = _capacity(cfg, S)
@@ -138,6 +143,7 @@ def dispatch(params, x, cfg: ModelConfig, expert_ffn):
     aux = aux_load_balance_loss(gates, topi, E)
     pos, keep = _route_positions(topi, cfg, C)
     slots = _slot_table(topi, pos, keep, E, C)                # (B,E,C)
+    kw = {"live": (slots < S).any(2).any(0)} if pass_live else {}
 
     # slot (e, b*C + c) holds row b's token slots[b, e, c]; row b's zero
     # row sits at b*(S+1) + S of the flattened, padded tokens
@@ -145,7 +151,7 @@ def dispatch(params, x, cfg: ModelConfig, expert_ffn):
     idx = (slots + base).transpose(0, 1).reshape(-1)
     xe = _with_zero_row(x, 1).reshape(-1, D)[idx]
     ye = expert_ffn(params, xe.reshape(E, B * C, D)
-                    .to(dtype_of(cfg.compute_dtype)), cfg)    # (E,B*C,D)
+                    .to(dtype_of(cfg.compute_dtype)), cfg, **kw)  # (E,B*C,D)
 
     b = torch.arange(B, device=x.device)[:, None, None]
     flat_idx = torch.where(keep, topi * (B * C) + b * C + pos, E * B * C)
@@ -196,7 +202,7 @@ def moe_dense(params, x, cfg: ModelConfig):
 def moe_gmm(params, x, cfg: ModelConfig):
     """The dispatch of ``moe_dropping`` around the grouped-matmul kernel."""
     from repro_torch.kernels.moe_gmm import ops as gmm_ops
-    return dispatch(params, x, cfg, gmm_ops.expert_ffn)
+    return dispatch(params, x, cfg, gmm_ops.expert_ffn, pass_live=True)
 
 
 def moe_ffn(params, x, cfg: ModelConfig):

@@ -130,3 +130,66 @@ def test_kernel_refuses_what_it_does_not_take(cuda):
     q = torch.zeros(1, 64, 2, 64, device=cuda, dtype=torch.float16)
     with pytest.raises(TypeError, match="dtype"):
         flash_attention.flash_attention_cuda(q, q, q)
+
+
+# Shapes for the Hopper bf16 kernel (128-row query tiles, 128-key tiles):
+# Sq/Sk off the tile (1000, 37, 1), q_offset with Sk > Sq, GQA groups 1, 2
+# and 5, window with softcap at hd 64 and 128, hd 32 non-causal, and a
+# decode-like offset with a ragged cache. The scores of these inputs have a
+# standard deviation near 1: a cap of 30 or 50 moves them by about 1e-2, a
+# cap of 2 or 3 by O(1), so the last three cases fail a kernel that skips
+# the cap.
+BF16_KERNEL = [
+    (1, 1000, 1000, 4, 2, 128, True, None, None, 0),
+    (2, 37, 37, 4, 4, 64, True, None, None, 0),
+    (2, 1, 1, 2, 1, 32, True, None, None, 0),
+    (1, 128, 256, 4, 2, 128, True, None, None, 128),
+    (2, 300, 300, 10, 2, 128, True, None, None, 0),
+    (1, 256, 256, 8, 8, 64, True, 100, 30.0, 0),
+    (1, 300, 300, 4, 2, 128, True, 70, 50.0, 0),
+    (2, 200, 200, 4, 4, 32, False, None, None, 0),
+    (1, 37, 333, 4, 1, 64, True, None, None, 296),
+    (1, 256, 256, 4, 2, 128, True, None, 2.0, 0),
+    (1, 300, 300, 8, 8, 64, True, 100, 2.0, 0),
+    (2, 200, 200, 4, 4, 32, True, None, 3.0, 0),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", BF16_KERNEL, ids=str)
+def test_bf16_kernel_matches_plain_version(cuda, case):
+    q, k, v = (torch.from_numpy(a).to(cuda, torch.bfloat16)
+               for a in _inputs(*case[:6], seed=1))
+    before = flash_attention.LAUNCHES
+    got = ops.attention(q, k, v, impl="kernel", **_kw(case))
+    want = attention_reference(q, k, v, **_kw(case))
+    torch.cuda.synchronize()
+    assert flash_attention.LAUNCHES == before + 1
+    assert got.dtype == q.dtype and got.shape == q.shape
+    tol = TOL[torch.bfloat16]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [32, 64, 128])
+def test_bf16_kernel_reads_packed_strided_inputs(cuda, hd):
+    """bf16 q, k, v as head slices of one packed (B,S,H+2KVH,hd) projection,
+    read in place through the tensor maps."""
+    B, S, H, KVH = 2, 200, 8, 2
+    packed = torch.randn(B, S, H + 2 * KVH, hd, device=cuda,
+                         generator=torch.Generator(cuda).manual_seed(hd)
+                         ).bfloat16()
+    q, k, v = packed[:, :, :H], packed[:, :, H:H + KVH], packed[:, :, H + KVH:]
+    got = flash_attention.flash_attention_cuda(q, k, v, causal=True)
+    want = attention_reference(q, k, v, causal=True)
+    tol = TOL[torch.bfloat16]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_bf16_kernel_refuses_strides_tma_cannot_take(cuda):
+    """A bf16 stride that is not a multiple of 8 elements (16 bytes) is
+    refused, not copied."""
+    q = torch.zeros(1, 64, 2, 68, device=cuda, dtype=torch.bfloat16)[..., :64]
+    with pytest.raises(ValueError, match="multiples of 8"):
+        flash_attention.flash_attention_cuda(q, q, q)
