@@ -36,9 +36,10 @@ Phases:
      and the kernel's TFLOP/s.
   9. Hold the Mamba2 SSD scan kernel against its plain version
      (``ssd_chunked``) with a random initial state on the three shapes of
-     the JAX kernel tests, in f32 and bf16, and at zamba2-1.2b's serving
-     shape (8, 2048, 64 heads, P=64, G=1, N=64, Q=128) in bf16 with a bf16
-     log decay, as the model passes it; and the flash kernel at zamba2's
+     the JAX kernel tests, in f32 (the CUDA-core kernel) and bf16 (the TMA +
+     wgmma kernel), and at zamba2-1.2b's serving shape (8, 2048, 64 heads,
+     P=64, G=1, N=64, Q=128) in bf16 with a bf16 log decay, as the model
+     passes it; and the flash kernel at zamba2's
      attention shape (8, 2048, 32 heads, 32 KV heads, hd 64) in bf16, and
      at hd 64 off the tiles (Sq = Sk = 1000; Sq = 37) and with a window and
      a softcap (of 50 and of 2).
@@ -47,16 +48,21 @@ Phases:
      with seeded random f32 weights drawn on the card, and hold one prefill
      (B=2, S=1024) through both kernels against the same prefill through
      both plain versions: last-position logits, conv and SSM states and the
-     KV cache.
+     KV cache. Then the same weights in bf16: the bf16 prefill through both
+     kernels (the tensor-core SSD kernel among them) and through both plain
+     versions: the kernels' logits and SSM states may lie at most twice as
+     far from the f32 ones as the plain versions' (``BF16_PREFILL_RATIO``).
  11. Serve: answer 3 requests of 8 prompts x 2048 tokens, 32 new tokens
      each, through ``Engine`` with zamba2-1.2b in bf16. Both kernels' launch
      counts are set to 0 just before this phase and read just after it.
- 12. Report: time the SSD kernel and its plain version at the serving shape,
-     and the flash kernel at zamba2's attention shape, beside the bounds.
+ 12. Report: time the SSD kernel and its plain
+     version at the serving shape, and the flash kernel at zamba2's
+     attention shape, beside the bounds.
  13. Hold the RWKV6 WKV scan kernel against its plain version
      (``wkv6_chunked``) with a random initial state and a random bonus u on
      the two shapes of the JAX kernel test and a strong-decay case
-     (log_w = -11.9 |normal|), in f32 and bf16, and at rwkv6-3b's serving
+     (log_w = -11.9 |normal|), in f32 (the step kernel) and bf16 (the
+     chunked tensor-core kernel), and at rwkv6-3b's serving
      shape (8, 2048, 40 heads, K=V=64, Q=64) in bf16 with a bf16 log decay,
      as the model passes it.
  14. Build rwkv6-3b at its published widths and depth (32 layers, d_model
@@ -65,12 +71,16 @@ Phases:
      (the token-shift lerps, the decay bias, the bonus) or sets to ones
      (``ln_x``) drawn at random too, and hold one prefill (B=2, S=1024)
      through the kernel against the same prefill through ``wkv6_chunked``:
-     last-position logits, both token shifts and the WKV state.
+     last-position logits, both token shifts and the WKV state. Then the
+     same weights in bf16 through the tensor-core kernel against the bf16
+     prefill through ``wkv6_chunked``, as in phase 10.
  15. Serve: answer 3 requests of 8 prompts x 2048 tokens, 32 new tokens
      each, through ``Engine`` with rwkv6-3b in bf16. The WKV launch count
      is set to 0 just before this phase and read just after it.
- 16. Report: time the WKV kernel and its plain version at the serving
-     shape, beside the bound.
+ 16. Report: time the WKV kernel and its plain
+     version at the serving shape, beside the bound of the function: its
+     bytes, and the chunked form's tensor-core operations (the step form's
+     f32 operation count, the f32 step kernel's bound, as a note).
  17. Hold the grouped-matmul (gmm) kernel against its plain version
      (``gmm_reference``) on the two shapes of the JAX kernel test and on
      ragged row counts (53, 1, 8), in f32 and bf16, and on every shape
@@ -109,7 +119,10 @@ Phases:
      attention shape, beside the bounds and TFLOP/s.
 
 The kernels are built first, one ``nvcc`` per source, all in parallel;
-``ptxas`` reports each kernel's registers and spills.
+``ptxas`` reports each kernel's registers and spills. Every time (kernel,
+plain version, PyTorch call) is the median over CUDA events of ten calls an
+event pair, so that a binding's host work overlaps the previous call's
+kernel instead of sitting inside the events.
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line and,
 last, ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
@@ -211,6 +224,26 @@ PREFILL_SHAPE = (2, 1024)
 # orders (ssd_chunked, ssd_naive) also do. A real fault moves the O(1)
 # logits and states by O(1).
 PREFILL_TOL = 1e-3
+# bf16 prefills (phases 10 and 14): both passes round every weight, matmul
+# output and activation to bf16. Where the kernel's f32 result and the plain
+# version's fall on two sides of a bf16 rounding boundary the two differ by
+# one ulp there, and the stack carries such flips on and grows them to the
+# size of bf16's own rounding noise: a first hold, kernel-vs-plain at most
+# the plain bf16 prefill's distance from the plain f32 one, failed on
+# rwkv6-3b's logits at 1.135 times it (zamba2-1.2b: 0.904 and 0.857 on an
+# H100). So each bf16 prefill is held against the f32 prefill of the same
+# weights, the nearest thing to the exact result: the kernel's bf16 logits
+# and scan states may lie at most BF16_PREFILL_RATIO times as far from the
+# f32 ones as the plain version's bf16 ones do. Two bf16 passes that differ
+# only by rounding lie about equally far: the kernels read 0.80-1.42 on an
+# H100. Builds of the kernels with one phase left out
+# (benchmarks/bench_port_scan_ablation.py --holds) read 5.4-66 in each
+# output that the fault moves at all. Faults that leave the prefill within
+# bf16's noise (a lost precision term; the SSD carry-in, which zamba2's fast
+# random decays hide) are the kernel holds' to catch (phases 9 and 13), and
+# they do. The RMS distances
+# are logged beside (0.90-1.06 for the kernels) and not held.
+BF16_PREFILL_RATIO = 2.0
 
 HYBRID_ARCH = "zamba2-1.2b"
 # (B, L, H, P, G, N, Q): tests/test_kernels.py::test_mamba2_ssd_kernel
@@ -297,8 +330,10 @@ def check(ok: bool, what: str) -> None:
         raise SystemExit(f"chip_smoke FAILED: {what}")
 
 
-def median_ms(fn, reps: int = 10, warmup: int = 2) -> float:
-    """Median device time of one call of fn, from CUDA events."""
+def median_ms(fn, reps: int = 10, warmup: int = 2, inner: int = 10) -> float:
+    """Median device time of one call of fn, from CUDA events around
+    ``inner`` calls in a row (so that the host work of a binding overlaps
+    the previous call's kernel instead of sitting inside the events)."""
     for _ in range(warmup):
         fn()
     times = []
@@ -306,10 +341,11 @@ def median_ms(fn, reps: int = 10, warmup: int = 2) -> float:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(inner):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / inner)
     return float(np.median(times))
 
 
@@ -325,10 +361,11 @@ def ptxas_summary(name: str) -> list[str]:
         m = re.search(r"Used (\d+) registers", line)
         if m:
             out.append(f"{m.group(1)} registers, {spills}")
-        m = re.search(r"entry function '\w*?\d((?:flash|gmm)_\w*?kernel)"
-                      r"(?:ILi(\d+)E)?", line)
+        m = re.search(r"entry function '\w*?\d((?:flash|gmm|ssd|wkv6)_\w*?kernel)"
+                      r"((?:I?Li\d+E)*)", line)
         if m:
-            out.append(m.group(1) + (f"<{m.group(2)}>" if m.group(2) else ""))
+            args = re.findall(r"Li(\d+)E", m.group(2))
+            out.append(m.group(1) + (f"<{','.join(args)}>" if args else ""))
     return [f"{k}: {r}" for k, r in zip(out[::2], out[1::2])]
 
 
@@ -550,6 +587,68 @@ def hold_prefill(B, S, cfg, got, want, got_cache, want_cache,
             f"err {err:.3e} (rtol = atol = {PREFILL_TOL:.0e})")
 
 
+def hold_bf16_prefill(params, cfg, tokens, f32_logits, f32_cache,
+                      state: str, counters) -> dict:
+    """The f32 weights ``params`` cast to bf16: prefill through the kernels
+    and prefill through the plain versions, the logits and every cache leaf
+    named ``state`` of each held against the plain f32 prefill
+    (``f32_logits``, ``f32_cache``) by BF16_PREFILL_RATIO. ``counters`` maps
+    a kernel module to the design its bf16 launches must report; each must
+    run once a layer in the kernel pass and never in the plain one."""
+    cfg16 = cfg.replace(param_dtype="bfloat16", compute_dtype="bfloat16")
+    p16 = _cast_tree(params, torch.bfloat16)
+    before = {m: dict(m.LAUNCHES_BY_DESIGN) for m in counters}
+    with torch.inference_mode():
+        got, got_cache = lm_api.prefill(p16, cfg16, {"tokens": tokens})
+        mid = {m: dict(m.LAUNCHES_BY_DESIGN) for m in counters}
+        want, want_cache = lm_api.prefill(
+            p16, cfg16.replace(attn_impl="ref"), {"tokens": tokens})
+    torch.cuda.synchronize()
+    del p16
+    for m, design in counters.items():
+        ran = {d: mid[m][d] - before[m][d] for d in m.DESIGNS}
+        check(ran == {d: cfg.num_layers * (d == design) for d in m.DESIGNS}
+              and m.LAUNCHES_BY_DESIGN == mid[m],
+              f"bf16 prefill launches of {m.__name__}: {ran}, plain pass "
+              f"{ {d: m.LAUNCHES_BY_DESIGN[d] - mid[m][d] for d in m.DESIGNS} }")
+    check(bool(torch.isfinite(got).all()), "bf16 prefill logits not finite")
+    pairs = [("logits", got, want, f32_logits)] + [
+        (path, a, b, c) for (path, a), (_, b), (_, c) in
+        zip(_named_leaves(got_cache), _named_leaves(want_cache),
+            _named_leaves(f32_cache)) if path.endswith("/" + state)]
+    out = {}
+    for what, a, b, c in pairs:
+        a, b, c = a.double(), b.double(), c.double()
+        out[what] = {
+            "finite": bool(torch.isfinite(a).all()),
+            "max_abs_err": (a - b).abs().max().item(),
+            "kernel_vs_f32": (a - c).abs().max().item(),
+            "plain_vs_f32": (b - c).abs().max().item(),
+            "kernel_vs_f32_rms": (a - c).square().mean().sqrt().item(),
+            "plain_vs_f32_rms": (b - c).square().mean().sqrt().item()}
+        e = out[what]
+        log(f"  bf16 B={tokens.shape[0]} S={tokens.shape[1]} {what} "
+            f"{tuple(a.shape)}: kernel vs plain max abs err "
+            f"{e['max_abs_err']:.3e}; from the f32 prefill, max abs: kernel "
+            f"{e['kernel_vs_f32']:.3e}, plain {e['plain_vs_f32']:.3e} (ratio "
+            f"{e['kernel_vs_f32'] / e['plain_vs_f32']:.3f}, limit "
+            f"{BF16_PREFILL_RATIO}); rms: kernel {e['kernel_vs_f32_rms']:.3e}, "
+            f"plain {e['plain_vs_f32_rms']:.3e} (ratio "
+            f"{e['kernel_vs_f32_rms'] / e['plain_vs_f32_rms']:.3f})")
+    for what, e in out.items():
+        check(e["finite"]
+              and e["kernel_vs_f32"] <= BF16_PREFILL_RATIO * e["plain_vs_f32"],
+              f"bf16 prefill {what}: kernel {e['kernel_vs_f32']} from f32, "
+              f"plain {e['plain_vs_f32']}")
+    return out
+
+
+def _cast_tree(tree, dtype):
+    return {k: _cast_tree(v, dtype) if isinstance(v, dict)
+            else v.to(dtype) if v.is_floating_point() else v
+            for k, v in tree.items()}
+
+
 def _named_leaves(tree, path=""):
     for k, v in tree.items():
         if isinstance(v, dict):
@@ -609,6 +708,8 @@ def serve(phase: int, cfg, seed: int, kernels: dict, prepare=None) -> dict:
     torch.cuda.reset_peak_memory_stats()
     for module, _ in kernels.values():
         module.LAUNCHES = 0
+        if hasattr(module, "LAUNCHES_BY_DESIGN"):
+            module.LAUNCHES_BY_DESIGN = dict.fromkeys(module.DESIGNS, 0)
     try:
         for r in range(SERVE_REQUESTS):
             times["prefill"].clear()
@@ -642,8 +743,13 @@ def serve(phase: int, cfg, seed: int, kernels: dict, prepare=None) -> dict:
         check(launches[name] == SERVE_REQUESTS * per,
               f"{name} launched {launches[name]} times, expected "
               f"{SERVE_REQUESTS * per}")
-    return {name: {"launches": launches[name], "launches_per_request": per}
-            for name, (_, per) in kernels.items()}
+    out = {name: {"launches": launches[name], "launches_per_request": per}
+           for name, (_, per) in kernels.items()}
+    for name, (module, _) in kernels.items():
+        if hasattr(module, "LAUNCHES_BY_DESIGN"):
+            out[name]["launches_by_design"] = dict(module.LAUNCHES_BY_DESIGN)
+            log(f"  {name} launches by kernel: {module.LAUNCHES_BY_DESIGN}")
+    return out
 
 
 def live_pairs(Sq, Sk, causal, window, q_offset) -> int:
@@ -742,9 +848,9 @@ def phase_ssd_kernels() -> dict:
     return {"max_abs_err": err}, flash_err
 
 
-def phase_hybrid_prefill() -> None:
-    log(f"phase 10: full-width {HYBRID_ARCH} in f32, prefill through both "
-        "kernels against prefill through both plain versions")
+def phase_hybrid_prefill() -> dict:
+    log(f"phase 10: full-width {HYBRID_ARCH} in f32, then bf16, prefill "
+        "through both kernels against prefill through both plain versions")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg = get_config(HYBRID_ARCH).replace(param_dtype="float32",
@@ -778,14 +884,22 @@ def phase_hybrid_prefill() -> None:
           f"plain prefill {mamba2_ssd.LAUNCHES - ssd1}, "
           f"{flash_attention.LAUNCHES - fa1}")
     hold_prefill(B, S, cfg, got, want, got_cache, want_cache)
+    del got, got_cache
+    torch.cuda.empty_cache()
+    return hold_bf16_prefill(params, cfg, tokens, want, want_cache, "ssm",
+                             {mamba2_ssd: "wgmma+tma"})
 
 
 def phase_hybrid_serve() -> dict:
     cfg = get_config(HYBRID_ARCH).replace(attn_impl="kernel")
     groups = cfg.num_layers // cfg.attn_every
-    return serve(11, cfg, SEED + 9,
-                 {"mamba2_ssd": (mamba2_ssd, cfg.num_layers),
-                  "flash_attention": (flash_attention, groups)})
+    out = serve(11, cfg, SEED + 9,
+                {"mamba2_ssd": (mamba2_ssd, cfg.num_layers),
+                 "flash_attention": (flash_attention, groups)})
+    ran = out["mamba2_ssd"]["launches_by_design"]
+    check(ran["wgmma+tma"] == out["mamba2_ssd"]["launches"],
+          f"bf16 serving launched the SSD kernels {ran}")
+    return out
 
 
 def phase_ssd_report() -> tuple[dict, dict]:
@@ -891,9 +1005,9 @@ def randomise_rwkv_leaves(params, gen) -> None:
     tm["ln_x"].copy_(torch.rand(tm["ln_x"].shape, generator=gen, device=DEV) + 0.5)
 
 
-def phase_rwkv_prefill() -> None:
-    log(f"phase 14: full-width {RWKV_ARCH} in f32, prefill through the kernel "
-        "against prefill through wkv6_chunked")
+def phase_rwkv_prefill() -> dict:
+    log(f"phase 14: full-width {RWKV_ARCH} in f32, then bf16, prefill through "
+        "the kernel against prefill through wkv6_chunked")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg = get_config(RWKV_ARCH).replace(param_dtype="float32",
@@ -926,13 +1040,21 @@ def phase_rwkv_prefill() -> None:
     log(f"  rwkv6_scan launches: kernel prefill {wkv1 - wkv0}, plain prefill "
         f"{rwkv6_scan.LAUNCHES - wkv1}")
     hold_prefill(B, S, cfg, got, want, got_cache, want_cache)
+    del got, got_cache
+    torch.cuda.empty_cache()
+    return hold_bf16_prefill(params, cfg, tokens, want, want_cache, "state",
+                             {rwkv6_scan: "mma"})
 
 
 def phase_rwkv_serve() -> dict:
     cfg = get_config(RWKV_ARCH).replace(attn_impl="kernel")
-    return serve(15, cfg, SEED + 14,
-                 {"rwkv6_scan": (rwkv6_scan, cfg.num_layers)},
-                 prepare=randomise_rwkv_leaves)
+    out = serve(15, cfg, SEED + 14,
+                {"rwkv6_scan": (rwkv6_scan, cfg.num_layers)},
+                prepare=randomise_rwkv_leaves)
+    ran = out["rwkv6_scan"]["launches_by_design"]
+    check(ran["mma"] == out["rwkv6_scan"]["launches"],
+          f"bf16 serving launched the WKV kernels {ran}")
+    return out
 
 
 def phase_rwkv_report() -> dict:
@@ -952,16 +1074,24 @@ def phase_rwkv_report() -> dict:
     moved = (sum(t.numel() * t.element_size() for t in (r, k, v, lw, s0))
              + u.numel() * 4 + v.numel() * v.element_size()
              + s0.numel() * s0.element_size())
-    # per (b, h, step): r S (one FMA per state entry), S w + k v (a multiply
-    # and an FMA per entry), the bonus a = sum r u k (3 K) and a v (2 V)
-    flops = B * H * L * (5 * K * V + 3 * K + 2 * V)
+    # the function in its chunked form, per (b, h) and 64-step chunk: the
+    # carry-in (Q,K)x(K,V), the causal half of the (Q,Q) decayed r k^T and of
+    # A v, the rank-Q state update, each two operations a multiply-add
+    Qc = 64
+    chunk_flops = 2 * Qc * K * V + Qc * Qc * K + Qc * Qc * V + 2 * Qc * K * V
+    flops = B * H * (L // Qc) * chunk_flops
+    # the step form's f32 count (the f32 step kernel's bound), kept as a note:
+    # r S, S w + k v, the bonus a = sum r u k and a v, per (b, h, step)
+    step_flops = B * H * L * (5 * K * V + 3 * K + 2 * V)
     bytes_ms = moved / HBM_BYTES_PER_S * 1e3
-    flops_ms = flops / F32_FLOP_PER_S * 1e3
+    flops_ms = flops / BF16_FLOP_PER_S * 1e3
+    step_ms = step_flops / F32_FLOP_PER_S * 1e3
     log(f"  kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, library: none; bound "
         f"{max(bytes_ms, flops_ms):.3f} ms ({moved / 2**20:.0f} MiB at "
-        f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s = {bytes_ms:.3f} ms; "
-        f"{flops / 1e9:.1f} GFLOP at {F32_FLOP_PER_S / 1e12:.0f} TFLOP/s f32 = "
-        f"{flops_ms:.3f} ms)")
+        f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s = {bytes_ms:.3f} ms; chunked form "
+        f"{flops / 1e9:.1f} GFLOP at {BF16_FLOP_PER_S / 1e12:.0f} TFLOP/s bf16 = "
+        f"{flops_ms:.3f} ms); note: the step form's {step_flops / 1e9:.1f} GFLOP "
+        f"at {F32_FLOP_PER_S / 1e12:.0f} TFLOP/s f32 = {step_ms:.3f} ms")
     return {"ms": ms, "plain_ms": plain_ms,
             "bound_ms": max(bytes_ms, flops_ms),
             "bound_by": "bytes" if bytes_ms >= flops_ms else "operations",
@@ -1276,7 +1406,7 @@ def main() -> None:
     built = _build.build_libraries()
     log(f"built {', '.join(built)} from source, one nvcc each in parallel, "
         f"in {time.perf_counter() - t0:.1f} s")
-    for name in ("flash_attention", "moe_gmm"):
+    for name in ("flash_attention", "mamba2_ssd", "rwkv6_scan", "moe_gmm"):
         for line in ptxas_summary(name):
             log(f"  ptxas {name}: {line}")
     sur = Surrogate(CONFIG, seed=SEED, device=DEV)
@@ -1302,7 +1432,7 @@ def main() -> None:
     flash.update(phase_flash_report())
 
     ssd, flash["max_abs_err_hybrid"] = phase_ssd_kernels()
-    phase_hybrid_prefill()
+    ssd["bf16_prefill"] = phase_hybrid_prefill()
     torch.cuda.empty_cache()
     hybrid = phase_hybrid_serve()
     ssd.update(hybrid["mamba2_ssd"])
@@ -1314,7 +1444,7 @@ def main() -> None:
     ssd.update(ssd_times)
 
     wkv = phase_rwkv_kernels()
-    phase_rwkv_prefill()
+    wkv["bf16_prefill"] = phase_rwkv_prefill()
     torch.cuda.empty_cache()
     wkv.update(phase_rwkv_serve()["rwkv6_scan"])
     torch.cuda.empty_cache()
@@ -1350,11 +1480,11 @@ def main() -> None:
         "name": "mamba2_ssd", "route": "cuda",
         "source": "src/repro_torch/kernels/mamba2_ssd/mamba2_ssd.cu",
         "replaces": "src/repro/kernels/mamba2_ssd/mamba2_ssd.py:74",
-        **ssd}, {
+        "design": "wgmma+tma", **ssd}, {
         "name": "rwkv6_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/rwkv6_scan/rwkv6_scan.cu",
         "replaces": "src/repro/kernels/rwkv6_scan/rwkv6_scan.py:68",
-        **wkv}, {
+        "design": "mma", **wkv}, {
         "name": "moe_gmm", "route": "cuda",
         "source": "src/repro_torch/kernels/moe_gmm/moe_gmm.cu",
         "replaces": "src/repro/kernels/moe_gmm/moe_gmm.py:42",

@@ -8,15 +8,19 @@ is not), and the library is bound with ``ctypes``. ``build_libraries``
 starts one ``nvcc`` per library, all at once, and waits for all of them.
 Nothing is built when a module is imported, and a failed build raises.
 
-The bf16 kernels of ``flash_attention.cu`` and ``moe_gmm.cu`` include the
-shared Hopper header ``hopper.cuh`` (``HEADERS``): it enters every
+The bf16 kernels of ``flash_attention.cu``, ``moe_gmm.cu``,
+``mamba2_ssd.cu`` and ``rwkv6_scan.cu`` include the shared Hopper header
+``hopper.cuh`` (``HEADERS``): it enters every
 library's hash, so an edited header rebuilds them, but it is not a
 translation unit of its own. The header encodes TMA tensor maps with the
 driver's ``cuTensorMapEncodeTiled``, which it looks up in the loaded
 ``libcuda.so.1`` with ``dlopen``/``dlsym`` (hence ``-ldl``), so no library
 links against ``libcuda``. ``-Xptxas=-v`` makes ``nvcc`` report each
 kernel's registers, shared memory and spills; the report is kept beside
-the library (``ptxas_report``).
+the library (``ptxas_report``). ``defines`` (macros passed as ``-D`` flags,
+part of the hash) build a variant of a library beside it; the kernels are
+built without any, and only ``benchmarks/bench_port_scan_ablation.py``
+passes them.
 """
 from __future__ import annotations
 
@@ -54,24 +58,28 @@ def _nvcc() -> str:
     return path
 
 
-def _target(name: str) -> Path:
-    digest = hashlib.sha256(" ".join(CUDA_FLAGS).encode())
+def _flags(defines=()) -> list[str]:
+    return [*CUDA_FLAGS, *(f"-D{d}" for d in defines)]
+
+
+def _target(name: str, defines=()) -> Path:
+    digest = hashlib.sha256(" ".join(_flags(defines)).encode())
     for src in LIBRARIES[name] + HEADERS:
         digest.update((KERNELS_DIR / src).read_bytes())
     return BUILD_DIR / name / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
-def build_libraries(names=tuple(LIBRARIES)) -> dict[str, Path]:
+def build_libraries(names=tuple(LIBRARIES), defines=()) -> dict[str, Path]:
     """Compile every library in ``names`` that is not built yet, one ``nvcc``
     process each, all in parallel; return the path of each library."""
-    targets = {n: _target(n) for n in names}
+    targets = {n: _target(n, defines) for n in names}
     jobs = {}
     for name, target in targets.items():
         if target.exists():
             continue
         target.parent.mkdir(parents=True, exist_ok=True)
         tmp = target.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *CUDA_FLAGS, "-o", str(tmp),
+        cmd = [_nvcc(), *_flags(defines), "-o", str(tmp),
                *(str(KERNELS_DIR / s) for s in LIBRARIES[name])]
         jobs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                        stderr=subprocess.STDOUT, text=True),
@@ -94,6 +102,6 @@ def ptxas_report(name: str) -> str:
     return _target(name).with_suffix(".ptxas.txt").read_text()
 
 
-def load_library(name: str) -> ctypes.CDLL:
+def load_library(name: str, defines=()) -> ctypes.CDLL:
     """Build the library ``name`` if needed and load it."""
-    return ctypes.CDLL(str(build_libraries((name,))[name]))
+    return ctypes.CDLL(str(build_libraries((name,), defines)[name]))

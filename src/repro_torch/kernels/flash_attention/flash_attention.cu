@@ -309,11 +309,6 @@ __device__ __forceinline__ float fast_exp2(float x) {
   return y;
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&h);
-}
-
 template <int HD>
 __global__ void __launch_bounds__(Bf16Tile<HD>::kThreads, 1)
 flash_bf16_kernel(const __grid_constant__ CUtensorMap qmap,
@@ -462,8 +457,8 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap qmap,
           const float p3 = fast_exp2((s[4 * j + 3] - m[1]) * kLog2e);
           l[0] += p0 + p1;
           l[1] += p2 + p3;
-          pa[kk][2 * half] = pack_bf16(p0, p1);
-          pa[kk][2 * half + 1] = pack_bf16(p2, p3);
+          pa[kk][2 * half] = hopper::pack_bf16(p0, p1);
+          pa[kk][2 * half + 1] = hopper::pack_bf16(p2, p3);
         }
       }
 #pragma unroll

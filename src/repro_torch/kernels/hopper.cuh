@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the port's bf16 tensor-core
-// kernels (flash_attention.cu, moe_gmm.cu): TMA tensor maps and loads,
-// mbarrier rings, wgmma descriptors and instructions, register rebalancing
-// between producer and consumer warpgroups. Everything is inline PTX.
+// kernels (flash_attention.cu, moe_gmm.cu, mamba2_ssd.cu, rwkv6_scan.cu):
+// TMA tensor maps and loads, mbarrier rings, wgmma descriptors and
+// instructions, ldmatrix and mma.sync, register rebalancing between
+// producer and consumer warpgroups. Everything is inline PTX.
 //
 // Host side. cuTensorMapEncodeTiled is a driver-API function; the kernels'
 // libraries link only the CUDA runtime, so the function is looked up in the
@@ -12,10 +13,13 @@
 // Shared-memory layouts. A TMA load with CU_TENSOR_MAP_SWIZZLE_128B writes a
 // box whose inner dimension is 64 bf16 (128 bytes) as rows of 128 bytes with
 // the 16-byte chunks of row r permuted by r % 8; SWIZZLE_64B does the same
-// for 32 bf16 (64-byte rows, chunks permuted by (r / 2) % 4). wgmma reads the
-// same layouts through a descriptor of layout type 1 (B128) or 2 (B64).
-// Every tile starts on a 1024-byte boundary so that the swizzle phase of its
-// first row is 0.
+// for 32 bf16 (64-byte rows, chunks permuted by (r / 2) % 4) and SWIZZLE_32B
+// for 16 bf16 (32-byte rows, chunks permuted by (r / 4) % 2). In every case
+// byte offset o of a tile lands at swizzle<ROW>(o): bits 4.. of o are XORed
+// with bits 7.. (three, two or one of them). wgmma reads the same layouts
+// through a descriptor of layout type 1 (B128), 2 (B64) or 3 (B32). Every
+// tile starts on a 1024-byte boundary so that the swizzle phase of its first
+// row is 0.
 //
 // Descriptors, in the terms of the PTX ISA (all offsets in bytes here, the
 // descriptor stores them >> 4):
@@ -30,6 +34,7 @@
 #pragma once
 
 #include <cuda.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <dlfcn.h>
 
@@ -137,6 +142,21 @@ __device__ __forceinline__ void named_barrier(int id, int count) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
 }
 
+// Makes this thread's ordinary shared-memory stores visible to the async
+// proxy (TMA, wgmma operand reads); a barrier must follow before another
+// thread's wgmma reads them.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Byte offset o of a tile whose rows are ROW bytes (128, 64 or 32), in the
+// matching TMA / wgmma swizzle.
+template <int ROW>
+__device__ __forceinline__ uint32_t swizzle(uint32_t o) {
+  static_assert(ROW == 128 || ROW == 64 || ROW == 32, "swizzled rows");
+  return o ^ (((o >> 7) & (ROW / 16 - 1)) << 4);
+}
+
 // TMA box loads into shared memory; completion is counted in bytes on `bar`.
 // Coordinates are in elements, innermost first, and may lie out of bounds.
 __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
@@ -181,7 +201,26 @@ __device__ __forceinline__ void reg_dealloc() {
 // Device: wgmma
 // ---------------------------------------------------------------------------
 
-enum Layout : uint32_t { kB128 = 1, kB64 = 2 };
+enum Layout : uint32_t { kB128 = 1, kB64 = 2, kB32 = 3 };
+
+// The layout and TMA swizzle of a tile whose rows are ROW bytes.
+template <int ROW>
+struct Swizzled;
+template <>
+struct Swizzled<128> {
+  static constexpr Layout layout = kB128;
+  static constexpr CUtensorMapSwizzle tma = CU_TENSOR_MAP_SWIZZLE_128B;
+};
+template <>
+struct Swizzled<64> {
+  static constexpr Layout layout = kB64;
+  static constexpr CUtensorMapSwizzle tma = CU_TENSOR_MAP_SWIZZLE_64B;
+};
+template <>
+struct Swizzled<32> {
+  static constexpr Layout layout = kB32;
+  static constexpr CUtensorMapSwizzle tma = CU_TENSOR_MAP_SWIZZLE_32B;
+};
 
 // Shared-memory matrix descriptor; offsets in bytes.
 __device__ __forceinline__ uint64_t make_desc(const void* smem, uint32_t lbo,
@@ -237,7 +276,35 @@ template <int N>
 struct Wgmma;
 
 template <>
+struct Wgmma<16> {
+  template <int TB>
+  static __device__ __forceinline__ void rs(float (&d)[8], const uint32_t (&a)[4],
+                                            uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7"
+        "}, {%8, %9, %10, %11}, %12, p, 1, 1, %14;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d),
+          "n"(TB));
+  }
+};
+
+template <>
 struct Wgmma<32> {
+  template <int TB>
+  static __device__ __forceinline__ void ss(float (&d)[16], uint64_t da, uint64_t db,
+                                            int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+        "}, %16, %17, p, 1, 1, 0, %19;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "l"(da), "l"(db), "r"(scale_d), "n"(TB));
+  }
   template <int TB>
   static __device__ __forceinline__ void rs(float (&d)[16], const uint32_t (&a)[4],
                                             uint64_t db, int scale_d) {
@@ -255,6 +322,21 @@ struct Wgmma<32> {
 
 template <>
 struct Wgmma<64> {
+  template <int TB>
+  static __device__ __forceinline__ void ss(float (&d)[32], uint64_t da, uint64_t db,
+                                            int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+        "}, %32, %33, p, 1, 1, 0, %35;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(da), "l"(db), "r"(scale_d), "n"(TB));
+  }
   template <int TB>
   static __device__ __forceinline__ void rs(float (&d)[32], const uint32_t (&a)[4],
                                             uint64_t db, int scale_d) {
@@ -356,5 +438,76 @@ struct Wgmma<256> {
         : "l"(da), "l"(db), "r"(scale_d), "n"(TB));
   }
 };
+
+// ---------------------------------------------------------------------------
+// Device: bf16 pairs, and f32 values split into sums of bf16 terms
+// ---------------------------------------------------------------------------
+
+// (lo, hi) rounded to bf16 and packed, lo in the low half: one 32-bit
+// register of a tensor-core operand fragment.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+__device__ __forceinline__ float2 unpack_bf16(uint32_t v) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v));
+}
+
+// (a0, a1) = hi + lo with hi and lo packed bf16 pairs, to ~2^-16 of the f32
+// values (one bf16 term alone keeps 2^-9); split3 adds a third term, ~2^-24.
+// A product of f32 operands then runs as bf16 passes over the terms.
+__device__ __forceinline__ void split2(float a0, float a1, uint32_t& hi, uint32_t& lo) {
+  hi = pack_bf16(a0, a1);
+  const float2 h = unpack_bf16(hi);
+  lo = pack_bf16(a0 - h.x, a1 - h.y);
+}
+
+__device__ __forceinline__ void split3(float a0, float a1, uint32_t& hi, uint32_t& mid,
+                                       uint32_t& lo) {
+  hi = pack_bf16(a0, a1);
+  const float2 h = unpack_bf16(hi);
+  split2(a0 - h.x, a1 - h.y, mid, lo);
+}
+
+// ---------------------------------------------------------------------------
+// Device: ldmatrix and mma.sync (warp-level tensor-core products)
+// ---------------------------------------------------------------------------
+
+// Four 8x8 bf16 matrices; lanes 8i..8i+7 give the row addresses of matrix i.
+// Plain: lane l receives row l/4, columns 2(l%4), 2(l%4)+1 of each matrix.
+// trans: lane l receives rows 2(l%4), 2(l%4)+1 of column l/4.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* row) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(row)));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* row) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(row)));
+}
+
+// Two 8x8 bf16 matrices, transposed; lanes 0-15 give the row addresses.
+__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t (&r)[2], const void* row) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_u32(row)));
+}
+
+// D (16 x 8, f32) += A (16 x 16, bf16) * B (16 x 8, bf16), one warp; lane l,
+// g = l / 4, c = 2 (l % 4): a = {(g, c..c+1), (g+8, c..c+1), (g, c+8..c+9),
+// (g+8, c+8..c+9)}; b = {(k c..c+1, n g), (k c+8..c+9, n g)}; d = {(g, c),
+// (g, c+1), (g+8, c), (g+8, c+1)}. Pairs are packed low element first.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
 
 }  // namespace hopper

@@ -2,9 +2,13 @@
 replaces ``repro/kernels/mamba2_ssd/mamba2_ssd.py::ssd_pallas``.
 
 ``ssd_cuda`` checks its inputs, allocates y and the final state, launches
-the kernel on the current stream and counts the launch in ``LAUNCHES``. It
-takes CUDA tensors only; the plain version is ``ref.ssd_chunked``. The
-contract is the TPU kernel's: ``Q = min(chunk, L)`` must divide L.
+the kernel on the current stream and counts the launch in ``LAUNCHES``, and
+in ``LAUNCHES_BY_DESIGN`` under the kernel the library reports it ran:
+bf16 runs on the tensor cores (TMA-fed ``wgmma``, "wgmma+tma"), f32 on
+CUDA-core FMA ("fma"). It takes CUDA tensors only; the plain version is
+``ref.ssd_chunked``. The contract is the TPU kernel's: ``Q = min(chunk, L)``
+must divide L. The f32 kernel works in chunks of Q; the bf16 one in chunks
+of 64 whatever Q is (the chunked form is exact in any chunking).
 """
 from __future__ import annotations
 
@@ -21,26 +25,40 @@ MAX_CHUNK = 128
 _DTYPES = (torch.float32, torch.bfloat16)
 
 LAUNCHES = 0      # kernel launches since the caller last set it to 0
+# the same launches by the kernel that ran (mamba2_ssd_last_design)
+DESIGNS = ("fma", "wgmma+tma")
+LAUNCHES_BY_DESIGN = dict.fromkeys(DESIGNS, 0)
 
 
 @functools.cache
-def library() -> ctypes.CDLL:
+def library(defines: tuple[str, ...] = ()) -> ctypes.CDLL:
     """Build the kernel from ``mamba2_ssd.cu`` at the first call and bind
-    it."""
-    lib = _build.load_library("mamba2_ssd")
+    it. ``defines`` build a timing variant (``_build``); calls of the
+    binding use the kernel as written."""
+    lib = _build.load_library("mamba2_ssd", defines)
     fn = lib.mamba2_ssd_fwd
     fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
                    + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_int,
                       ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
+    lib.mamba2_ssd_last_design.argtypes = []
+    lib.mamba2_ssd_last_design.restype = ctypes.c_int
     return lib
+
+
+def _tma_ready(t) -> bool:
+    """A bf16 tensor TMA can read in place: 16-byte aligned base, strides of
+    the three outer dims multiples of 8 elements."""
+    return t.data_ptr() % 16 == 0 and all(s % 8 == 0 for s in t.stride()[:3])
 
 
 def ssd_cuda(x, log_a, b, c, initial_state=None, *, chunk: int = 128):
     """x (B,L,H,P); log_a (B,L,H); b/c (B,L,G,N); initial_state (B,H,P,N)
     or None (zeros), all on one CUDA device. x, b and c share a dtype (f32 or
     bf16) and have a contiguous last dim; log_a is f32 or bf16. Returns
-    (y (B,L,H,P) in x's dtype, final state (B,H,P,N) f32)."""
+    (y (B,L,H,P) in x's dtype, final state (B,H,P,N) f32). In bf16, an x,
+    b or c whose base or strides TMA cannot take (say a slice of a packed
+    projection at an odd offset) is first copied to a contiguous tensor."""
     global LAUNCHES
     tensors = (x, log_a, b, c) + (() if initial_state is None
                                   else (initial_state,))
@@ -80,6 +98,10 @@ def ssd_cuda(x, log_a, b, c, initial_state=None, *, chunk: int = 128):
             raise ValueError(f"initial_state {tuple(initial_state.shape)}, "
                              f"expected {(B, H, P, N)}")
         s0 = initial_state.float().contiguous()
+    if x.dtype == torch.bfloat16:
+        x, b, c = (t if _tma_ready(t)
+                   else t.clone(memory_format=torch.contiguous_format)
+                   for t in (x, b, c))
     y = torch.empty(B, L, H, P, dtype=x.dtype, device=x.device)
     s_out = torch.empty(B, H, P, N, dtype=torch.float32, device=x.device)
     strides = (ctypes.c_longlong * 12)(
@@ -91,8 +113,10 @@ def ssd_cuda(x, log_a, b, c, initial_state=None, *, chunk: int = 128):
             Q, strides, int(x.dtype == torch.bfloat16),
             int(log_a.dtype == torch.bfloat16),
             torch.cuda.current_stream().cuda_stream)
+        design = DESIGNS[library().mamba2_ssd_last_design()]
     if err:
         raise RuntimeError(f"mamba2_ssd kernel launch failed: CUDA error "
                            f"{err}")
     LAUNCHES += 1
+    LAUNCHES_BY_DESIGN[design] += 1
     return y, s_out

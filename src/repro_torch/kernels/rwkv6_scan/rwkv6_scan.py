@@ -2,11 +2,15 @@
 replaces ``repro/kernels/rwkv6_scan/rwkv6_scan.py::wkv6_pallas``.
 
 ``wkv6_cuda`` checks its inputs, allocates y and the final state, launches
-the kernel on the current stream and counts the launch in ``LAUNCHES``. It
-takes CUDA tensors only; the plain version is ``ref.wkv6_chunked``. The
-contract is the TPU kernel's: ``Q = min(chunk, L)`` must divide L. The
-kernel runs the exact per-step recurrence, so Q decides nothing but which
-prompts are accepted.
+the kernel on the current stream and counts the launch in ``LAUNCHES``, and
+in ``LAUNCHES_BY_DESIGN`` under the kernel the library reports it ran:
+bf16 runs the chunked form on the tensor cores ("mma"), f32 the exact
+per-step recurrence on CUDA-core FMA ("fma"). It takes CUDA tensors only;
+the plain version is ``ref.wkv6_chunked`` (``ref.wkv6_subchunked`` is the
+bf16 kernel's arrangement in f32). The contract is the TPU kernel's:
+``Q = min(chunk, L)`` must divide L. Both kernels are exact in any
+chunking (the bf16 one works in chunks of 32 whatever Q is), so Q decides
+nothing but which prompts are accepted.
 """
 from __future__ import annotations
 
@@ -22,26 +26,43 @@ MAX_CHUNK = 64
 _DTYPES = (torch.float32, torch.bfloat16)
 
 LAUNCHES = 0      # kernel launches since the caller last set it to 0
+# the same launches by the kernel that ran (rwkv6_scan_last_design)
+DESIGNS = ("fma", "mma")
+LAUNCHES_BY_DESIGN = dict.fromkeys(DESIGNS, 0)
 
 
 @functools.cache
-def library() -> ctypes.CDLL:
+def library(defines: tuple[str, ...] = ()) -> ctypes.CDLL:
     """Build the kernel from ``rwkv6_scan.cu`` at the first call and bind
-    it."""
-    lib = _build.load_library("rwkv6_scan")
+    it. ``defines`` build a timing variant (``_build``); calls of the
+    binding use the kernel as written."""
+    lib = _build.load_library("rwkv6_scan", defines)
     fn = lib.rwkv6_scan_fwd
     fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
                    + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_int,
                       ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
+    lib.rwkv6_scan_last_design.argtypes = []
+    lib.rwkv6_scan_last_design.restype = ctypes.c_int
     return lib
+
+
+def _async_ready(t) -> bool:
+    """A tensor the bf16 kernel's 16-byte cp.async loads can read in place:
+    16-byte aligned base, byte strides of the three outer dims multiples of
+    16."""
+    return (t.data_ptr() % 16 == 0
+            and all(s * t.element_size() % 16 == 0 for s in t.stride()[:3]))
 
 
 def wkv6_cuda(r, k, v, log_w, u, initial_state=None, *, chunk: int = 64):
     """r/k/log_w (B,L,H,K); v (B,L,H,V); u (H,K); initial_state (B,H,K,V)
     or None (zeros), all on one CUDA device. r, k and v share a dtype (f32
     or bf16) and, like log_w (f32 or bf16), have a contiguous last dim.
-    Returns (y (B,L,H,V) in r's dtype, final state (B,H,K,V) f32)."""
+    Returns (y (B,L,H,V) in r's dtype, final state (B,H,K,V) f32). In bf16,
+    an r, k, v or log_w whose base or strides the kernel's 16-byte loads
+    cannot take (say a slice of a packed projection at an odd offset) is
+    first copied to a contiguous tensor."""
     global LAUNCHES
     tensors = (r, k, v, log_w, u) + (() if initial_state is None
                                      else (initial_state,))
@@ -83,6 +104,10 @@ def wkv6_cuda(r, k, v, log_w, u, initial_state=None, *, chunk: int = 64):
                              f"expected {(B, H, K, V)}")
         s0 = initial_state.float().contiguous()
     uf = u.float().contiguous()
+    if r.dtype == torch.bfloat16:
+        r, k, v, log_w = (t if _async_ready(t)
+                          else t.clone(memory_format=torch.contiguous_format)
+                          for t in (r, k, v, log_w))
     y = torch.empty(B, L, H, V, dtype=r.dtype, device=r.device)
     s_out = torch.empty(B, H, K, V, dtype=torch.float32, device=r.device)
     strides = (ctypes.c_longlong * 12)(
@@ -94,8 +119,10 @@ def wkv6_cuda(r, k, v, log_w, u, initial_state=None, *, chunk: int = 64):
             B, L, H, K, strides, int(r.dtype == torch.bfloat16),
             int(log_w.dtype == torch.bfloat16),
             torch.cuda.current_stream().cuda_stream)
+        design = DESIGNS[library().rwkv6_scan_last_design()]
     if err:
         raise RuntimeError(f"rwkv6_scan kernel launch failed: CUDA error "
                            f"{err}")
     LAUNCHES += 1
+    LAUNCHES_BY_DESIGN[design] += 1
     return y, s_out

@@ -186,3 +186,71 @@ def test_kernel_refuses_what_it_does_not_take(cuda):
         ops.ssd(x[..., :16], la, b, c, s0[:, :, :16], impl="kernel")
     with pytest.raises(TypeError, match="dtype"):
         ops.ssd(x.half(), la, b.half(), c.half(), s0, impl="kernel")
+
+
+# The bf16 tensor-core kernel: every (P, N) it takes with G in {1, 2, 4} at
+# the serving chunk, a prompt shorter than one chunk (L = Q = 37), and
+# L = 1000 in chunks of 125 (the kernel works in its own 64-step chunks
+# whatever Q is, so its last chunk holds 40 steps and the rows past L are
+# masked out).
+BF16_SWEEP = [(2, 256, 4, P, G, N, 128) for P in (32, 64) for N in (16, 32, 64)
+              for G in (1, 2, 4)]
+BF16_RAGGED = [(2, 37, 4, 64, 1, 64, 128), (1, 1000, 4, 64, 2, 64, 125),
+               (1, 1000, 2, 32, 1, 16, 125)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", BF16_SWEEP + BF16_RAGGED, ids=str)
+def test_bf16_kernel_matches_plain_version(cuda, case):
+    """The wgmma kernel with a random initial state and a bf16 log decay, as
+    the model passes it; it must be the kernel that ran."""
+    *shape, Q = case
+    x, la, b, c, s0 = _torch(_inputs(*shape, seed=3), torch.bfloat16, cuda)
+    la = la.bfloat16()
+    before = dict(mamba2_ssd.LAUNCHES_BY_DESIGN)
+    y, s = ops.ssd(x, la, b, c, s0, impl="kernel", chunk=Q)
+    y_want, s_want = ref.ssd_chunked(x, la, b, c, s0, chunk=Q)
+    torch.cuda.synchronize()
+    assert mamba2_ssd.LAUNCHES_BY_DESIGN["wgmma+tma"] == before["wgmma+tma"] + 1
+    assert mamba2_ssd.LAUNCHES_BY_DESIGN["fma"] == before["fma"]
+    assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(s).all())
+    tol = KERNEL_TOL[torch.bfloat16]
+    torch.testing.assert_close(y.float(), y_want.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(s, s_want, rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_kernel_design_follows_dtype(cuda, dtype):
+    """Dispatch is by dtype alone: bf16 reaches the wgmma kernel, f32 the
+    CUDA-core one, and nothing else runs."""
+    x, la, b, c, s0 = _torch(_inputs(1, 128, 2, 64, 1, 64), DTYPES[dtype], cuda)
+    before = dict(mamba2_ssd.LAUNCHES_BY_DESIGN)
+    ops.ssd(x, la, b, c, s0, impl="kernel", chunk=128)
+    torch.cuda.synchronize()
+    want = "wgmma+tma" if dtype == "bfloat16" else "fma"
+    assert {k: v - before[k] for k, v in mamba2_ssd.LAUNCHES_BY_DESIGN.items()} \
+        == {d: int(d == want) for d in mamba2_ssd.DESIGNS}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 3])
+def test_bf16_kernel_reads_packed_strided_inputs(cuda, offset):
+    """bf16 x, b and c as slices of one packed (B,L,offset+H*P+2N) tensor:
+    at offset 0 TMA reads them in place, at offset 3 (bases and strides off
+    16 bytes) the binding copies them first."""
+    B, L, H, P, N = 2, 256, 4, 64, 32
+    gen = torch.Generator(cuda).manual_seed(1)
+    width = offset + H * P + 2 * N + (8 if offset == 0 else 3)
+    packed = torch.randn(B, L, width, device=cuda, generator=gen).bfloat16()
+    x = packed[..., offset:offset + H * P].unflatten(-1, (H, P))
+    b = packed[..., offset + H * P:offset + H * P + N].unflatten(-1, (1, N))
+    c = packed[..., offset + H * P + N:offset + H * P + 2 * N].unflatten(-1, (1, N))
+    la = torch.rand(B, L, H + 2, device=cuda, generator=gen).neg_()[..., 1:H + 1]
+    s0 = torch.randn(B, H, P, N, device=cuda, generator=gen)
+    assert not (x.is_contiguous() or b.is_contiguous() or la.is_contiguous())
+    y, s = mamba2_ssd.ssd_cuda(x, la, b, c, s0, chunk=128)
+    y_want, s_want = ref.ssd_chunked(x, la, b, c, s0, chunk=128)
+    tol = KERNEL_TOL[torch.bfloat16]
+    torch.testing.assert_close(y.float(), y_want.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(s, s_want, rtol=tol, atol=tol)

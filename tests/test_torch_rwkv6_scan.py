@@ -121,6 +121,45 @@ def test_strong_decay_stays_finite_and_exact():
     _close(s1, want[1])
 
 
+@pytest.mark.parametrize("chunk_sub", [None, (32, 8)], ids=["Q-16", "32-8"])
+@pytest.mark.parametrize("case", CASES, ids=str)
+def test_subchunked_matches_jax(case, chunk_sub):
+    """The chunked arrangement of the bf16 kernel (sub-chunks, factored
+    off-diagonal decays, exact diagonal blocks), in f32, against the JAX
+    Pallas kernel and ``wkv6_chunked``: with the case's chunk in 16-step
+    sub-chunks, and in the kernel's own 32-step chunks of 8-step blocks."""
+    import jax.numpy as jnp
+    from repro.kernels.rwkv6_scan import ref as jax_ref
+    from repro.kernels.rwkv6_scan.rwkv6_scan import wkv6_pallas
+    *shape, Q = case
+    arrays = _inputs(*shape)
+    chunk, sub = chunk_sub or (Q, 16)
+    got = ref.wkv6_subchunked(*_torch(arrays, torch.float32), chunk=chunk, sub=sub)
+    assert bool(torch.isfinite(got[0]).all()) and bool(torch.isfinite(got[1]).all())
+    jargs = [jnp.asarray(a) for a in arrays]
+    for want in (wkv6_pallas(*jargs, chunk=Q),
+                 jax_ref.wkv6_chunked(*jargs, chunk=Q)):
+        _close(got[0], want[0])
+        _close(got[1], want[1])
+
+
+def test_subchunked_strong_decay_matches_jax():
+    """log_w = -11.9 |normal|, whose per-step logs reach below -40: every
+    value finite and within 1e-4 of both JAX versions."""
+    import jax.numpy as jnp
+    from repro.kernels.rwkv6_scan import ref as jax_ref
+    from repro.kernels.rwkv6_scan.rwkv6_scan import wkv6_pallas
+    arrays = _inputs(1, 256, 2, 16, 16, seed=1, decay=11.9)
+    assert arrays[3].min() < -40
+    got = ref.wkv6_subchunked(*_torch(arrays, torch.float32), chunk=64)
+    assert bool(torch.isfinite(got[0]).all()) and bool(torch.isfinite(got[1]).all())
+    jargs = [jnp.asarray(a) for a in arrays]
+    for want in (wkv6_pallas(*jargs, chunk=64),
+                 jax_ref.wkv6_chunked(*jargs, chunk=64)):
+        _close(got[0], want[0])
+        _close(got[1], want[1])
+
+
 @pytest.mark.parametrize("K", [32, 64])
 def test_wkv6_step_matches_jax(K):
     import jax.numpy as jnp
@@ -227,3 +266,81 @@ def test_kernel_refuses_what_it_does_not_take(cuda):
     strided = r.transpose(2, 3).contiguous().transpose(2, 3)
     with pytest.raises(ValueError, match="contiguous"):
         ops.wkv6(strided, k, v, lw, u, s0, impl="kernel")
+
+
+# The bf16 tensor-core kernel off its 32-step chunks: L = 1000 in the
+# contract's chunks of 8 (the kernel's last chunk holds 8 steps), L = 37,
+# and K = 32.
+BF16_CASES = [(1, 1000, 3, 64, 64, 8), (2, 37, 2, 64, 64, 64),
+              (2, 100, 4, 32, 32, 50)]
+
+
+def _hold_bf16(y, s, y_want, s_want):
+    assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(s).all())
+    torch.testing.assert_close(y.float(), y_want.float(), rtol=TOL,
+                               atol=_bf16_ulp(y_want.float().cpu()))
+    torch.testing.assert_close(s, s_want, rtol=TOL, atol=TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lw_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", BF16_CASES, ids=str)
+def test_bf16_kernel_matches_plain_version(cuda, case, lw_dtype):
+    *shape, Q = case
+    r, k, v, lw, u, s0 = _torch(_inputs(*shape, seed=4), torch.bfloat16, cuda)
+    lw = lw.to(DTYPES[lw_dtype])
+    before = dict(rwkv6_scan.LAUNCHES_BY_DESIGN)
+    y, s = ops.wkv6(r, k, v, lw, u, s0, impl="kernel", chunk=Q)
+    y_want, s_want = ref.wkv6_chunked(r, k, v, lw, u, s0, chunk=Q)
+    torch.cuda.synchronize()
+    assert rwkv6_scan.LAUNCHES_BY_DESIGN["mma"] == before["mma"] + 1
+    _hold_bf16(y, s, y_want, s_want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lw_dtype", ["float32", "bfloat16"])
+def test_bf16_kernel_strong_decay(cuda, lw_dtype):
+    """log_w = -11.9 |normal| (steps below -40) through the tensor-core
+    kernel, with a random initial state: finite, and at the bf16 holds."""
+    r, k, v, lw, u, s0 = _torch(_inputs(1, 256, 2, 64, 64, seed=1, decay=11.9),
+                                torch.bfloat16, cuda)
+    lw = lw.to(DTYPES[lw_dtype])
+    assert float(lw.min()) < -40
+    y, s = ops.wkv6(r, k, v, lw, u, s0, impl="kernel")
+    y_want, s_want = ref.wkv6_naive(r, k, v, lw, u, s0)
+    _hold_bf16(y, s, y_want, s_want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_kernel_design_follows_dtype(cuda, dtype):
+    """Dispatch is by dtype alone: bf16 reaches the tensor-core kernel, f32
+    the step kernel, and nothing else runs."""
+    r, k, v, lw, u, s0 = _torch(_inputs(1, 128, 2, 64, 64), DTYPES[dtype], cuda)
+    before = dict(rwkv6_scan.LAUNCHES_BY_DESIGN)
+    ops.wkv6(r, k, v, lw, u, s0, impl="kernel")
+    torch.cuda.synchronize()
+    want = "mma" if dtype == "bfloat16" else "fma"
+    assert {d: n - before[d] for d, n in rwkv6_scan.LAUNCHES_BY_DESIGN.items()} \
+        == {d: int(d == want) for d in rwkv6_scan.DESIGNS}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 3])
+def test_bf16_kernel_reads_packed_strided_inputs(cuda, offset):
+    """bf16 r, k, v and log_w as slices of one packed (B,L,offset+4*H*K+pad)
+    tensor: at offset 0 the kernel reads them in place, at offset 3 (bases
+    and strides off 16 bytes) the binding copies them first."""
+    B, L, H, K = 2, 128, 4, 64
+    gen = torch.Generator(cuda).manual_seed(0)
+    width = offset + 4 * H * K + (8 if offset == 0 else 3)
+    packed = torch.randn(B, L, width, device=cuda, generator=gen).bfloat16()
+    packed[..., offset + 3 * H * K:offset + 4 * H * K].abs_().neg_()  # log_w <= 0
+    r, k, v, lw = (packed[..., offset + i * H * K:offset + (i + 1) * H * K]
+                   .unflatten(-1, (H, K)) for i in range(4))
+    assert not any(t.is_contiguous() for t in (r, k, v, lw))
+    u = torch.randn(H, K, device=cuda, generator=gen).bfloat16()
+    s0 = torch.randn(B, H, K, K, device=cuda, generator=gen)
+    y, s = rwkv6_scan.wkv6_cuda(r, k, v, lw, u, s0, chunk=64)
+    y_want, s_want = ref.wkv6_chunked(r, k, v, lw, u, s0, chunk=64)
+    _hold_bf16(y, s, y_want, s_want)
