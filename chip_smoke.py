@@ -117,6 +117,30 @@ Phases:
      the prefill (gate) and decode shapes in bf16, decode twice (every
      expert live, and 8 of 16 live), and the flash kernel at llama4-scout's
      attention shape, beside the bounds and TFLOP/s.
+ 21. Retrain the full-width surrogate on the card and hold it against the
+     same retrain on the CPU: the same seeded initial weights, the same
+     (E, n) bootstrap indices, the campaign's 48 pre-campaign molecules.
+     The first epoch's loss gradients and the weights after one Adam epoch
+     within 1e-5 of each tensor's scale, the last loss of a three-epoch
+     retrain within 1e-4, and that loss below the first epoch's. Then time
+     an epoch on the card at 48 and at 168 molecules (the most a campaign
+     trains on) and read the peak memory.
+ 22. Campaign: ``run_campaign`` at full width on the card under each policy
+     (random, no-retrain, update-n) with the ``AppConfig`` defaults (800
+     molecules, budget 120, a retrain every 16 results, 200 epochs). Under
+     update-n each QC assay waits before the oracle answers, long enough
+     that the longest retrain of the campaign (200 epochs at 168 molecules,
+     timed in phase 21) returns before the next 16 results are in: the
+     paper's assays take hours and its retrains minutes, so there the model
+     is refreshed after every n results. Random and no-retrain never
+     retrain; a wait would change nothing they assay. Every re-score (the initial ranking, one after each retrain,
+     and the two MAE predicts around the campaign) goes through the
+     ``mpnn_mp`` kernel; its launch count is set to 0 just before each
+     campaign and read just after it, and must equal message steps x
+     chunks summed over those predicts. Training runs no kernel. update-n
+     must retrain at least once and re-score after every retrain, and
+     every retrain payload must reach the Updater as numpy, its large
+     leaves through Value Server proxies.
 
 The kernels are built first, one ``nvcc`` per source, all in parallel;
 ``ptxas`` reports each kernel's registers and spills. Every time (kernel,
@@ -137,6 +161,7 @@ import os
 import re
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -144,10 +169,13 @@ import torch
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
 
-from repro_torch.apps.electrolyte import Surrogate, rank_space  # noqa: E402
+from repro_torch.apps.electrolyte import (FEATURES, AppConfig,  # noqa: E402
+                                          Surrogate, rank_space, run_campaign)
 from repro_torch.configs.base import get_config  # noqa: E402
 from repro_torch.configs.mpnn_surrogate import CONFIG  # noqa: E402
-from repro_torch.data.molecules import MoleculeSpace, featurize  # noqa: E402
+from repro_torch.data import molecules  # noqa: E402
+from repro_torch.data.molecules import (MoleculeSpace,  # noqa: E402
+                                        featurize, oracle_batch)
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
@@ -165,6 +193,8 @@ from repro_torch.kernels.rwkv6_scan import rwkv6_scan  # noqa: E402
 from repro_torch.kernels.rwkv6_scan.ref import wkv6_chunked  # noqa: E402
 from repro_torch.models import api as lm_api  # noqa: E402
 from repro_torch.models import moe as lm_moe  # noqa: E402
+from repro_torch.models.convert import params_to_numpy  # noqa: E402
+from repro_torch.models.mpnn import mpnn_loss, param_shapes  # noqa: E402
 from repro_torch.serving.engine import Engine  # noqa: E402
 
 DEV = "cuda"
@@ -319,6 +349,19 @@ FA_MOE = (SERVE_BATCH, SERVE_PROMPT, SERVE_PROMPT, 40, 8, 128, True, None,
 GMM_LIVE = 8
 # Phase 18's decode step follows a prompt of this many tokens.
 MOE_DECODE_PROMPT = 16
+
+CAMPAIGN = AppConfig()       # the app's defaults: 800 molecules, budget 120
+# f32 on both sides: the card's and the CPU's retrain differ only in
+# summation order, as the port and the JAX package do in the CPU tests (1e-5
+# there at unit scale); held relative to each tensor's largest |value|.
+TRAIN_TOL = 1e-5
+RETRAIN_EPOCHS = 3
+# Three Adam epochs carry the summation differences into the weights, but
+# each step is at most lr = 5e-3 a weight: the last loss (~1) moves by far
+# less than 1e-4.
+LOSS_TOL = 1e-4
+TIMED_EPOCHS = 10
+POLICIES = ("random", "no-retrain", "update-n")
 
 
 def log(msg: str) -> None:
@@ -1399,6 +1442,221 @@ def phase_gmm_report() -> tuple[dict, dict]:
     return gmm, time_flash(FA_MOE, SEED + 21)
 
 
+def hold_scaled(got: dict, want: dict, tol: float, what: str) -> float:
+    """Each tensor of got within tol times the largest |value| of want's
+    (at least 1); returns the largest error relative to that scale."""
+    worst = 0.0
+    for name, w in want.items():
+        w = torch.as_tensor(w).float()
+        err = (torch.as_tensor(got[name]).float() - w).abs().max().item()
+        scale = max(1.0, w.abs().max().item())
+        check(err <= tol * scale, f"{what} {name}: max abs err {err:.3e} at "
+              f"scale {scale:.3g}, tolerance {tol:.0e} of the scale")
+        worst = max(worst, err / scale)
+    return worst
+
+
+def hold_adam_step(got: dict, want: dict, g_got: dict, g_want: dict,
+                   lr: float = CAMPAIGN.lr, eps: float = 1e-8):
+    """Weights after one Adam epoch on two devices. Adam's first step is
+    lr g / (|g| + eps), close to lr sign(g): where a gradient lies within a
+    few eps of zero, its rounding moves the step by up to 2 lr. So each
+    weight may differ by TRAIN_TOL of its tensor's scale plus the difference
+    of the two steps that the two devices' gradients (held to TRAIN_TOL
+    before) give. Returns the largest error relative to the scale outside
+    that term, and how many weights needed the term."""
+    worst, n_adam = 0.0, 0
+    for name, w in want.items():
+        w, v = torch.as_tensor(w), torch.as_tensor(got[name])
+        step = lambda g: lr * g / (g.abs() + eps)         # noqa: E731
+        adam = (step(g_got[name]) - step(g_want[name])).abs()
+        scale = max(1.0, w.abs().max().item())
+        err = (v - w).abs()
+        bad = err > TRAIN_TOL * scale + adam
+        if bad.any():
+            check(False, f"one-epoch weight {name}: {int(bad.sum())} weights "
+                  f"off by up to {err[bad].max().item():.3e} beyond "
+                  f"{TRAIN_TOL:.0e} of the scale {scale:.3g} and Adam's step")
+        n_adam += int((err > TRAIN_TOL * scale).sum())
+        worst = max(worst, (err - adam).clamp(min=0).max().item() / scale)
+    return worst, n_adam
+
+
+def phase_retrain() -> float:
+    log(f"phase 21: full-width retrain on the card against the CPU "
+        f"({CAMPAIGN.initial_train} molecules, E={CONFIG.ensemble})")
+    space = MoleculeSpace(num_molecules=CAMPAIGN.num_molecules, seed=42)
+    n = CAMPAIGN.initial_train
+    feats, y = featurize(space, range(n)), oracle_batch(space, range(n))
+    idx = np.random.default_rng(SEED + 22).integers(0, n, (CONFIG.ensemble, n))
+    y_n = ((y - y.mean()) / y.std()).astype(np.float32)
+    batch = {**{k: feats[k][idx] for k in FEATURES}, "y": y_n[idx]}
+    devices = (DEV, "cpu")
+
+    grads, first_loss = {}, {}
+    for dev in devices:
+        model = Surrogate(CONFIG, seed=SEED, device=dev).model
+        loss = mpnn_loss(model, {k: torch.from_numpy(v).to(dev)
+                                 for k, v in batch.items()})
+        loss.sum().backward()
+        grads[dev] = {k: p.grad.cpu() for k, p in model.named_parameters()}
+        first_loss[dev] = loss.detach().cpu()
+    grad_err = hold_scaled(grads[DEV], grads["cpu"], TRAIN_TOL, "gradient")
+    hold_scaled({"loss": first_loss[DEV]}, {"loss": first_loss["cpu"]},
+                TRAIN_TOL, "first loss")
+
+    params = {}
+    for dev in devices:
+        sur = Surrogate(CONFIG, seed=SEED, device=dev)
+        sur.train(feats, y, CAMPAIGN.lr, 1, idx=idx)
+        params[dev] = params_to_numpy(sur.model)
+    param_err, n_adam = hold_adam_step(params[DEV], params["cpu"],
+                                       grads[DEV], grads["cpu"])
+
+    last = {dev: Surrogate(CONFIG, seed=SEED, device=dev).train(
+        feats, y, CAMPAIGN.lr, RETRAIN_EPOCHS, idx=idx) for dev in devices}
+    loss_err = abs(last[DEV] - last["cpu"])
+    check(loss_err <= LOSS_TOL, f"last loss card {last[DEV]:.6f} against CPU "
+          f"{last['cpu']:.6f}, tolerance {LOSS_TOL:.0e}")
+    start = first_loss[DEV].mean().item()
+    check(last[DEV] < start, f"loss did not fall: {start:.4f} at epoch 1, "
+          f"{last[DEV]:.4f} at epoch {RETRAIN_EPOCHS}")
+    log(f"  first-epoch gradients within {grad_err:.3e} of their scale, "
+        f"one-epoch weights {param_err:.3e} ({n_adam} weights of "
+        f"{sum(v.size for v in params['cpu'].values())} beyond it by Adam's "
+        f"step on a near-zero gradient); loss {start:.4f} at epoch 1, "
+        f"{last[DEV]:.6f} at epoch {RETRAIN_EPOCHS} (CPU {last['cpu']:.6f}, "
+        f"|diff| {loss_err:.3e})")
+
+    epoch_ms = {}
+    for n_mol in (n, n + CAMPAIGN.qc_budget):
+        f = featurize(space, range(n_mol))
+        yy = oracle_batch(space, range(n_mol))
+        sur = Surrogate(CONFIG, seed=SEED, device=DEV)
+        sur.train(f, yy, CAMPAIGN.lr, 2)                    # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        sur.train(f, yy, CAMPAIGN.lr, TIMED_EPOCHS)          # ends in a sync
+        ms = epoch_ms[n_mol] = (time.perf_counter() - t0) / TIMED_EPOCHS * 1e3
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        log(f"  {n_mol} molecules: {ms:.1f} ms an epoch (host clock over "
+            f"{TIMED_EPOCHS}), peak device memory {peak:.2f} GiB")
+        del sur
+        torch.cuda.empty_cache()
+    return epoch_ms[n + CAMPAIGN.qc_budget]
+
+
+@contextlib.contextmanager
+def assays_taking(seconds: float):
+    """Each QC assay of a campaign waits ``seconds`` before the synthetic
+    oracle (about a millisecond) answers; ``run_campaign`` looks the oracle
+    up on the module at each call. Only the assays that the Task Server's
+    QC workers run wait: the pre-campaign training set and the MAE targets
+    (``oracle_batch`` on the calling thread) stand for data already at
+    hand."""
+    oracle = molecules.qc_oracle
+
+    def slow_oracle(space, mol_id):
+        if threading.current_thread().name.startswith("worker-qc"):
+            time.sleep(seconds)
+        return oracle(space, mol_id)
+
+    molecules.qc_oracle = slow_oracle
+    try:
+        yield
+    finally:
+        molecules.qc_oracle = oracle
+
+
+def join_workers(timeout: float = 300.0) -> None:
+    """Wait for a campaign's Task Server worker threads: a retrain still
+    running when the budget is spent finishes after run_campaign returns."""
+    for th in threading.enumerate():
+        if th.name.startswith("worker-"):
+            th.join(timeout)
+            check(not th.is_alive(), f"{th.name} still running")
+
+
+def phase_campaign(epoch_ms: float) -> dict:
+    # the longest retrain (the most molecules) within n_retrain results
+    qc_seconds = (epoch_ms * CAMPAIGN.train_epochs / 1e3
+                  * CAMPAIGN.parallel_qc / CAMPAIGN.n_retrain)
+    log(f"phase 22: run_campaign at full width under {', '.join(POLICIES)} "
+        f"({CAMPAIGN.num_molecules} molecules, budget {CAMPAIGN.qc_budget}, "
+        f"retrain every {CAMPAIGN.n_retrain}, {CAMPAIGN.train_epochs} epochs; "
+        f"update-n's assays take {qc_seconds:.3f} s, {CAMPAIGN.parallel_qc} "
+        f"at a time, so that a {CAMPAIGN.train_epochs}-epoch retrain at "
+        f"{epoch_ms:.1f} ms an epoch returns within {CAMPAIGN.n_retrain} "
+        f"results)")
+    chunk = Surrogate(CONFIG, seed=SEED, device=DEV).chunk_size(16)
+    per_space = CONFIG.message_steps * math.ceil(CAMPAIGN.num_molecules / chunk)
+    per_mae = CONFIG.message_steps * math.ceil(64 / chunk)
+    sizes = {k: 4 * math.prod(shape)
+             for k, shape in param_shapes(CONFIG).items()}
+    proxied = [k for k, v in sizes.items() if v >= 1 << 16]
+    unproxied = sum(v for k, v in sizes.items() if k not in proxied)
+    outs, launches = {}, 0
+    for policy in POLICIES:
+        app = AppConfig(policy=policy)
+        wait = qc_seconds if policy == "update-n" else 0.0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        mpnn_mp.LAUNCHES = 0
+        t0 = time.perf_counter()
+        with assays_taking(wait):
+            out = run_campaign(app, device=DEV, cfg=CONFIG)
+            wall = time.perf_counter() - t0
+            join_workers()
+        n_launched = mpnn_mp.LAUNCHES
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        events = [(kind, p) for _, kind, p in out["trace"] if kind != "qc"]
+        reorders = [p["seconds"] for kind, p in events if kind == "reorder"]
+        retrains = [p for kind, p in events if kind == "retrain"]
+        check(out["n_evaluated"] >= app.qc_budget,
+              f"{policy}: {out['n_evaluated']} assays of {app.qc_budget}")
+        check(len(reorders) == (policy != "random") + len(retrains),
+              f"{policy}: {len(reorders)} re-scores after "
+              f"{len(retrains)} retrains")
+        want = per_space * len(reorders) + 2 * per_mae
+        check(n_launched == want, f"{policy}: mpnn_mp launched {n_launched} "
+              f"times, expected {want} ({len(reorders)} re-scores x "
+              f"{per_space} + 2 MAE predicts x {per_mae})")
+        for i, (kind, p) in enumerate(events):
+            if kind == "retrain":
+                check(i + 1 < len(events) and events[i + 1][0] == "reorder",
+                      f"{policy}: no re-score after retrain {i}")
+                check(p["leaf_types"] == ["ndarray"],
+                      f"{policy}: retrain payload leaves {p['leaf_types']}")
+                check(unproxied < p["output_size"] < unproxied + 4096,
+                      f"{policy}: retrain result pickled to "
+                      f"{p['output_size']} bytes; without {proxied} it is "
+                      f"{unproxied}")
+        puts = out["value_server"]["puts"]
+        check(puts >= len(proxied) * len(retrains),
+              f"{policy}: {puts} Value Server puts for {len(retrains)} "
+              f"retrains of {len(proxied)} proxied leaves")
+        if policy == "update-n":
+            check(len(retrains) >= 1, "update-n never retrained")
+        launches += n_launched
+        outs[policy] = out
+        retrain_ms = ", ".join(f"{p['seconds'] * 1e3:.0f}" for p in retrains)
+        rescore_ms = ", ".join(f"{t * 1e3:.1f}" for t in reorders)
+        log(f"  {policy}: {wall:.1f} s wall, assays of {wait:.3f} s; "
+            f"{out['n_evaluated']} assays, "
+            f"{out['n_high']} high-IP, success {out['success_rate']:.4f}, "
+            f"best {out['best']:.3f} V, MAE {out['initial_mae']:.3f} -> "
+            f"{out['final_mae']:.3f}; {len(retrains)} retrains "
+            f"[{retrain_ms}] ms, {len(reorders)} re-scores [{rescore_ms}] ms; "
+            f"mpnn_mp launches {n_launched}; Value Server puts {puts}; "
+            f"peak device memory {peak:.2f} GiB")
+        torch.cuda.empty_cache()
+    log(f"  success rate update-n {outs['update-n']['success_rate']:.4f}, "
+        f"no-retrain {outs['no-retrain']['success_rate']:.4f}, random "
+        f"{outs['random']['success_rate']:.4f}")
+    return {"launches": launches}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
@@ -1462,6 +1720,14 @@ def main() -> None:
     torch.cuda.empty_cache()
     gmm_times, flash["moe_shape"] = phase_gmm_report()
     gmm.update(gmm_times)
+    torch.cuda.empty_cache()
+
+    epoch_ms = phase_retrain()
+    # the mpnn_mp kernel runs on two paths; each was counted alone
+    kernel["launches_by_path"] = {
+        "rescore": kernel["launches"],
+        "campaign": phase_campaign(epoch_ms)["launches"]}
+    kernel["launches"] = sum(kernel["launches_by_path"].values())
 
     card = subprocess.run(
         ["nvidia-smi", "--id=0", "--query-gpu=name,power.limit",

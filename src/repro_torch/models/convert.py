@@ -4,7 +4,8 @@
 numpy arrays, e.g.
 ``jax.tree.map(np.asarray, repro.apps.electrolyte.Surrogate(cfg).params)``,
 and returns a state dict for ``MPNNEnsemble`` that computes the same
-function. ``lm_params_from_numpy`` takes a language model's nested tree,
+function; ``params_to_numpy`` is its inverse. ``lm_params_from_numpy``
+takes a language model's nested tree,
 ``jax.tree.map(np.asarray, repro.models.api.init_params(cfg, key))``, and
 returns the same tree of tensors for ``repro_torch.models.api``.
 """
@@ -43,6 +44,17 @@ def params_from_numpy(tree: dict[str, np.ndarray], device) -> dict[str, torch.Te
         if arrays[n].shape != shape:
             raise ValueError(f"{n}: shape {arrays[n].shape}, expected {shape}")
     return {n: torch.tensor(a, device=device) for n, a in arrays.items()}
+
+
+def params_to_numpy(module: torch.nn.Module) -> dict[str, np.ndarray]:
+    """The stacked MPNN parameters of ``module`` as a flat dict of float32
+    numpy arrays on the host, with the names and (E, ...) shapes of
+    ``repro.models.mpnn.mpnn_params``: the inverse of
+    ``params_from_numpy``."""
+    names = param_shapes(MPNNConfig())
+    state = module.state_dict()
+    return {n: state[n].detach().to("cpu", torch.float32).numpy().copy()
+            for n in names}
 
 
 _NUMPY_DTYPE_NAMES = {torch.float32: "float32", torch.bfloat16: "bfloat16"}

@@ -7,7 +7,13 @@ followed by a GRU update, then a masked-sum readout MLP to one scalar.
 
 The ensemble axis that the JAX package vmaps is written out: every parameter
 carries a leading (E,) axis, node states are (E,B,N,Hd), and the message
-kernel sees the flattened E*B batch.
+kernel sees the flattened E*B batch. The inputs are one batch that every
+member scores, or one batch per member (training's bootstrap samples).
+
+Training runs no kernel. ``mpnn_loss`` takes the message step through the
+plain version (``impl="ref"``, an einsum that autograd differentiates), as
+the JAX loss runs ``mpnn_forward``'s default ``impl="ref"``: the ``mpnn_mp``
+kernel computes the forward step only, in both packages, and has no backward.
 """
 from __future__ import annotations
 
@@ -73,19 +79,22 @@ class MPNNEnsemble(nn.Module):
 
     def forward(self, atoms, bonds, mask, impl: str | None = None):
         """atoms (B,N) int; bonds (B,N,N) int (0 = none); mask (B,N) in
-        {0,1}. impl picks the message step (see ``mp_ops.message_pass``);
-        None takes the kernel on CUDA and the plain version on the CPU."""
+        {0,1}; or each with a leading (E,) axis, one batch per member. impl
+        picks the message step (see ``mp_ops.message_pass``); None takes the
+        kernel on CUDA and the plain version on the CPU."""
         cfg = self.cfg
         E, hd = cfg.ensemble, cfg.hidden
-        B, N = atoms.shape
+        B, N = atoms.shape[-2:]
         mask = mask.to(self.embed.dtype)
-        h = self.embed[:, atoms.long()] * mask[..., None]         # (E,B,N,Hd)
+        members = torch.arange(E, device=atoms.device)[:, None, None]
+        h = self.embed[members, atoms.long()] * mask[..., None]   # (E,B,N,Hd)
 
-        bond_oh = F.one_hot(bonds.long(), cfg.num_bond_types).to(h.dtype)
-        edge_mat = torch.matmul(bond_oh.reshape(1, B * N * N, -1),
+        nb = cfg.num_bond_types
+        bond_oh = F.one_hot(bonds.long(), nb).to(h.dtype)
+        edge_mat = torch.matmul(bond_oh.reshape(-1, B * N * N, nb),
                                 self.edge_w)                    # (E,BNN,Hd*Hd)
         edge_mat = edge_mat.reshape(E * B, N, N, hd, hd)
-        adj = (bonds > 0).to(h.dtype) * mask[:, :, None] * mask[:, None, :]
+        adj = (bonds > 0).to(h.dtype) * mask[..., :, None] * mask[..., None, :]
         adj = adj.expand(E, B, N, N).reshape(E * B, N, N)
 
         for _ in range(cfg.message_steps):
@@ -106,3 +115,11 @@ def ucb(preds, kappa: float = 2.0):
     """Upper confidence bound over ensemble predictions (E, B) -> (B,), with
     the population std, as ``jnp.std`` takes it."""
     return preds.mean(dim=0) + kappa * preds.std(dim=0, correction=0)
+
+
+def mpnn_loss(model: MPNNEnsemble, batch) -> torch.Tensor:
+    """Per-member mean squared error, (E,): batch {"atoms","bonds","mask"}
+    with a leading (E,) axis, one bootstrap sample per member, and "y"
+    (E,B). The message step is the plain version (module docstring)."""
+    pred = model(batch["atoms"], batch["bonds"], batch["mask"], impl="ref")
+    return (pred - batch["y"]).square().mean(dim=-1)
