@@ -141,6 +141,31 @@ Phases:
      must retrain at least once and re-score after every retrain, and
      every retrain payload must reach the Updater as numpy, its large
      leaves through Value Server proxies.
+ 23. Train step on the card against the CPU: internlm2-1.8b at published
+     widths cut to 2 layers, f32, B=2, S=256, 3 steps with no warmup, each
+     from one state on both devices (the CPU's state before the step, copied
+     to the card): metrics within 1e-5 relative, m and v within 1e-5
+     relative plus 5e-5 of each tensor's largest |value|, params by
+     ``hold_adam_step``'s rule at step t (1e-5 of the scale plus the
+     difference of the two devices' Adam steps from their own m and v).
+     Then the gradients under remat "block" against remat "none" on the
+     card, and a train step with ``attn_impl="kernel"`` must raise before
+     it launches anything.
+ 24. Train internlm2-1.8b at its published widths and depth (24 layers,
+     1.889 G parameters) in bf16 with remat "block" through
+     ``launch.train.train``: batch 8 x 2048 as 2 microbatches of 4, 20
+     steps at lr 3e-4 (warmup 1), the copied ``tokens.make_batch`` data.
+     Every kernel launch count is set to 0 just before and must still be 0
+     just after: training runs no hand-written kernel. Reports ms per step
+     (median of steps 3-20), tokens/s, model TFLOP/s, mfu and peak memory;
+     the mean loss of the last 5 steps must be below that of the first 5.
+ 25. Checkpoint on the card: the 2-layer cut in bf16 trains 2 steps, is
+     saved at step 2 (``CheckpointManager.save``) and trains on in place;
+     the restored step-2 state must equal a copy taken at step 2 bit for
+     bit. Then a run interrupted after 2 of 4 steps and resumed from its
+     checkpoint against the uninterrupted run: losses within 1e-3 relative,
+     weights within ``RESUME_TOL_LR`` lr plus one bf16 ulp a step. Reports
+     GB written and seconds.
 
 The kernels are built first, one ``nvcc`` per source, all in parallel;
 ``ptxas`` reports each kernel's registers and spills. Every time (kernel,
@@ -171,11 +196,14 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src
 
 from repro_torch.apps.electrolyte import (FEATURES, AppConfig,  # noqa: E402
                                           Surrogate, rank_space, run_campaign)
-from repro_torch.configs.base import get_config  # noqa: E402
+from repro_torch.checkpoint.manager import CheckpointManager  # noqa: E402
+from repro_torch.configs.base import (TrainConfig, get_config,  # noqa: E402
+                                      model_flops_per_token, param_count)
 from repro_torch.configs.mpnn_surrogate import CONFIG  # noqa: E402
 from repro_torch.data import molecules  # noqa: E402
 from repro_torch.data.molecules import (MoleculeSpace,  # noqa: E402
                                         featurize, oracle_batch)
+from repro_torch.data.tokens import make_batch  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
@@ -191,11 +219,15 @@ from repro_torch.kernels.mpnn_mp.ref import message_pass_reference  # noqa: E402
 from repro_torch.kernels.rwkv6_scan import ops as wkv_ops  # noqa: E402
 from repro_torch.kernels.rwkv6_scan import rwkv6_scan  # noqa: E402
 from repro_torch.kernels.rwkv6_scan.ref import wkv6_chunked  # noqa: E402
+from repro_torch.launch import steps as train_steps  # noqa: E402
+from repro_torch.launch.train import train as train_lm  # noqa: E402
 from repro_torch.models import api as lm_api  # noqa: E402
 from repro_torch.models import moe as lm_moe  # noqa: E402
 from repro_torch.models.convert import params_to_numpy  # noqa: E402
 from repro_torch.models.mpnn import mpnn_loss, param_shapes  # noqa: E402
 from repro_torch.serving.engine import Engine  # noqa: E402
+from repro_torch.utils.trees import (tree_flatten_with_paths,  # noqa: E402
+                                     tree_leaves, tree_map)
 
 DEV = "cuda"
 SEED = 0
@@ -362,6 +394,26 @@ RETRAIN_EPOCHS = 3
 LOSS_TOL = 1e-4
 TIMED_EPOCHS = 10
 POLICIES = ("random", "no-retrain", "update-n")
+
+# Phase 23: the published widths cut to 2 layers, f32, on both devices.
+TRAIN_CUT = 2
+TRAIN_SHAPE = (2, 256)
+TRAIN_STEPS = 3
+# f32 moments of gradients near zero are noise on both devices; held to
+# 5e-5 of each tensor's largest |value| (as the CPU tests hold the port to
+# the JAX package), and 1e-5 relative elsewhere.
+MOMENT_TOL = 5e-5
+# Phase 24: the trainer at full width.
+FULL_TRAIN = dict(batch=8, seq=2048, microbatches=2, steps_total=20, lr=3e-4)
+# Phase 25: checkpoint at step CKPT_STEP of CKPT_STEPS.
+CKPT_STEP, CKPT_STEPS = 2, 4
+# The interrupted and the uninterrupted run repeat the same operations on
+# the same data, but on the card a kernel that sums with atomics may sum in
+# another order in each run: a weight may then differ by the two runs' Adam
+# steps (|m_hat| / sqrt(v_hat) <= 1.01 over the first 4 steps at b1 0.9, b2
+# 0.95, so at most 2.02 lr a step) plus one bf16 ulp of the weight a step,
+# over all CKPT_STEPS steps.
+RESUME_TOL_LR = 2.02
 
 
 def log(msg: str) -> None:
@@ -1657,10 +1709,284 @@ def phase_campaign(epoch_ms: float) -> dict:
     return {"launches": launches}
 
 
+def zero_launches() -> dict:
+    """Set every binding's launch count to 0; return the bindings."""
+    mods = {"mpnn_mp": mpnn_mp, "flash_attention": flash_attention,
+            "mamba2_ssd": mamba2_ssd, "rwkv6_scan": rwkv6_scan,
+            "moe_gmm": moe_gmm}
+    for m in mods.values():
+        m.LAUNCHES = 0
+        if hasattr(m, "LAUNCHES_BY_DESIGN"):
+            m.LAUNCHES_BY_DESIGN = dict.fromkeys(m.DESIGNS, 0)
+    return mods
+
+
+def launch_counts(mods: dict) -> dict:
+    return {name: m.LAUNCHES for name, m in mods.items()}
+
+
+def train_cut(dtype: str):
+    return get_config(LM_ARCH).replace(num_layers=TRAIN_CUT, param_dtype=dtype,
+                                       compute_dtype=dtype)
+
+
+def adam_direction(m, v, step: int, tc: TrainConfig):
+    return (m / (1 - tc.b1 ** step)) / ((v / (1 - tc.b2 ** step)).sqrt()
+                                        + tc.eps)
+
+
+def hold_train_state(got: dict, want: dict, step: int, lr: float,
+                     tc: TrainConfig):
+    """The card's state (``got``, flattened) against the CPU's after train
+    step ``step``: m and v within 1e-5 relative plus MOMENT_TOL of each
+    tensor's largest |value|; params by ``hold_adam_step``'s rule at step t:
+    TRAIN_TOL of max(1, the tensor's largest |value|) plus lr |u - u'|, u
+    and u' the two devices' Adam directions from their own m and v.
+    Returns (worst moment error over its scale, worst param error over its
+    scale outside Adam's term, weights that needed the term)."""
+    worst_m = worst_p = 0.0
+    n_adam = 0
+    for key, w in want.items():
+        if not key.startswith("params/"):
+            continue
+        rest = key[len("params"):]
+        mv = {}
+        for which in (".m", ".v"):
+            wk = want[f"opt/{which}{rest}"]
+            gk = got[f"opt/{which}{rest}"].cpu()
+            err = (gk - wk).abs()
+            scale = wk.abs().max().item()
+            bad = err > 1e-5 * wk.abs() + MOMENT_TOL * scale
+            check(not bad.any(), f"step {step} {which} of {key}: "
+                  f"{int(bad.sum())} values off by up to "
+                  f"{err.max().item():.3e} at scale {scale:.3e}")
+            worst_m = max(worst_m, err.max().item() / max(scale, 1e-30))
+            mv[which] = (gk, wk)
+        adam = lr * (adam_direction(*(t[0] for t in mv.values()), step, tc)
+                     - adam_direction(*(t[1] for t in mv.values()), step, tc)
+                     ).abs()
+        g = got[key].cpu()
+        scale = max(1.0, w.abs().max().item())
+        err = (g - w).abs()
+        bad = err > TRAIN_TOL * scale + adam
+        check(not bad.any(), f"step {step} {key}: {int(bad.sum())} weights "
+              f"off by up to {err[bad].max().item() if bad.any() else 0:.3e} "
+              f"beyond {TRAIN_TOL:.0e} of the scale {scale:.3g} and Adam's "
+              "step")
+        n_adam += int((err > TRAIN_TOL * scale).sum())
+        worst_p = max(worst_p, (err - adam).clamp(min=0).max().item() / scale)
+    return worst_m, worst_p, n_adam
+
+
+def phase_train_step() -> None:
+    B, S = TRAIN_SHAPE
+    log(f"phase 23: {LM_ARCH} at published widths cut to {TRAIN_CUT} layers, "
+        f"f32, B={B}, S={S}: {TRAIN_STEPS} train steps on the card against "
+        "the CPU, each from one state")
+    cfg = train_cut("float32")
+    tc = TrainConfig(warmup_steps=0)
+    card = train_steps.init_state(
+        cfg, torch.Generator(device=DEV).manual_seed(SEED + 23), DEV)
+    cpu = tree_map(lambda t: t.to("cpu", copy=True), card)
+    step_fn = train_steps.make_train_step(cfg, tc)
+    rng = np.random.default_rng(SEED + 23)
+    n = sum(t.numel() for t in tree_leaves(cpu["params"]))
+    for t in range(1, TRAIN_STEPS + 1):
+        toks = rng.integers(0, cfg.vocab_size, size=(B, S + 1), dtype=np.int32)
+        batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+        for dst, src in zip(tree_leaves(card), tree_leaves(cpu)):
+            dst.copy_(src)
+        t0 = time.perf_counter()
+        card, m_card = step_fn(card, {k: torch.from_numpy(v).to(DEV)
+                                      for k, v in batch.items()})
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cpu, m_cpu = step_fn(cpu, {k: torch.from_numpy(v)
+                                   for k, v in batch.items()})
+        cpu_s = time.perf_counter() - t0
+        for name, want in m_cpu.items():
+            got = float(m_card[name])
+            check(abs(got - float(want)) <= 1e-5 * abs(float(want)),
+                  f"step {t} metric {name}: card {got}, CPU {float(want)}")
+        worst_m, worst_p, n_adam = hold_train_state(
+            dict(tree_flatten_with_paths(card)),
+            dict(tree_flatten_with_paths(cpu)), t, float(m_cpu["lr"]), tc)
+        log(f"  step {t}: loss {float(m_card['loss']):.6f} (CPU "
+            f"{float(m_cpu['loss']):.6f}), gnorm {float(m_card['grad_norm']):.4f}; "
+            f"m and v within {worst_m:.3e} of their scale, params "
+            f"{worst_p:.3e} ({n_adam} of {n} beyond it by Adam's step); "
+            f"{card_s:.2f} s on the card, {cpu_s:.1f} s on the CPU")
+    del cpu
+
+    batch = {k: torch.from_numpy(v).to(DEV) for k, v in batch.items()}
+    grads = {}
+    for remat in ("none", "block"):
+        g, _ = train_steps._grads_of(card["params"], cfg.replace(remat=remat),
+                                     batch)
+        grads[remat] = dict(tree_flatten_with_paths(g))
+    worst, same = 0.0, 0
+    for key, want in grads["none"].items():
+        got = grads["block"][key]
+        err = (got - want).abs().max().item()
+        scale = want.abs().max().item()
+        check(err <= 1e-6 * scale, f"remat block against none, {key}: max abs "
+              f"err {err:.3e} at scale {scale:.3e}")
+        worst = max(worst, err / max(scale, 1e-30))
+        same += bool(torch.equal(got, want))
+    log(f"  remat block against none on the card: gradients within "
+        f"{worst:.3e} of their scale, {same} of {len(grads['none'])} "
+        "bit for bit")
+    del grads
+
+    mods = zero_launches()
+    try:
+        train_steps.make_train_step(cfg.replace(attn_impl="kernel"), tc)(
+            card, batch)
+    except RuntimeError as e:
+        check("no backward" in str(e), f"unexpected error {e}")
+        log(f"  attn_impl='kernel' refused: {str(e)[:80]}...")
+    else:
+        check(False, "a train step through the flash kernel did not raise")
+    check(not any(launch_counts(mods).values()),
+          f"launches before the refusal: {launch_counts(mods)}")
+    del card
+    torch.cuda.empty_cache()
+
+
+def phase_train_full() -> dict:
+    cfg = get_config(LM_ARCH)
+    ft = FULL_TRAIN
+    log(f"phase 24: train {LM_ARCH} at published widths and depth "
+        f"({cfg.num_layers} layers, {param_count(cfg) / 1e9:.3f} G "
+        f"parameters) in bf16, remat {cfg.remat!r}: batch {ft['batch']} x "
+        f"{ft['seq']} as {ft['microbatches']} microbatches, "
+        f"{ft['steps_total']} steps at lr {ft['lr']}")
+    mods = zero_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = []
+    t0 = time.perf_counter()
+    _, losses = train_lm(LM_ARCH, reduced=False, log_every=5, device=DEV,
+                         print_fn=lambda msg: log("  " + msg),
+                         step_ms=step_ms, **ft)
+    wall = time.perf_counter() - t0
+    launches = launch_counts(mods)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check(not any(launches.values()), f"kernel launches in training: {launches}")
+    check(all(math.isfinite(x) for x in losses), f"losses {losses}")
+    first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    check(last < first, f"loss did not fall: {first:.4f} -> {last:.4f}")
+    tokens = ft["batch"] * ft["seq"]
+    ms = float(np.median(step_ms[2:]))
+    flops = model_flops_per_token(cfg, ft["seq"], training=True) * tokens
+    tflops = flops / ms / 1e9
+    out = {"ms_per_step": ms, "tokens_per_s": tokens / ms * 1e3,
+           "model_tflops": tflops, "mfu": tflops * 1e12 / BF16_FLOP_PER_S,
+           "peak_gib": peak, "loss_first5": first, "loss_last5": last,
+           "first_step_ms": step_ms[0]}
+    log(f"  {ms:.1f} ms a step (median of steps 3-{len(step_ms)}; steps "
+        f"{min(step_ms[2:]):.1f}-{max(step_ms[2:]):.1f}, the first "
+        f"{step_ms[0]:.1f}), {out['tokens_per_s']:.0f} tokens/s, "
+        f"{tflops:.1f} model TFLOP/s ({flops / 1e12:.1f} TFLOP a step), mfu "
+        f"{out['mfu']:.4f}, peak device memory {peak:.2f} GiB; loss "
+        f"{first:.4f} -> {last:.4f} (means of the first and last 5 steps); "
+        f"{wall:.1f} s in all; kernel launches {launches}")
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_checkpoint() -> None:
+    import shutil
+    import tempfile
+    log(f"phase 25: checkpoint on the card, {LM_ARCH} cut to {TRAIN_CUT} "
+        f"layers in bf16: save at step {CKPT_STEP}, train on, restore; resume "
+        f"after {CKPT_STEP} of {CKPT_STEPS} steps against the uninterrupted "
+        "run")
+    cfg = train_cut("bfloat16")
+    tc = TrainConfig(warmup_steps=0)
+    B, S = TRAIN_SHAPE
+    root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        state = train_steps.init_state(
+            cfg, torch.Generator(device=DEV).manual_seed(SEED + 25), DEV)
+        step_fn = train_steps.make_train_step(cfg, tc)
+        manager = CheckpointManager(os.path.join(root, "inplace"))
+        for step in range(CKPT_STEPS):
+            batch = make_batch(cfg, "train", B, S, step=step, seed=SEED)
+            state, _ = step_fn(state, {k: torch.from_numpy(v).to(DEV)
+                                       for k, v in batch.items()})
+            if step + 1 == CKPT_STEP:
+                copy = tree_map(lambda t: t.clone(), state)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                manager.save(CKPT_STEP, state)
+                save_s = time.perf_counter() - t0       # the host copy
+        manager.wait()
+        write_s = time.perf_counter() - t0
+        path = os.path.join(root, "inplace", f"step_{CKPT_STEP}")
+        gb = sum(os.path.getsize(os.path.join(path, f))
+                 for f in os.listdir(path)) / 1e9
+        t0 = time.perf_counter()
+        step, back = manager.restore(state)
+        torch.cuda.synchronize()
+        read_s = time.perf_counter() - t0
+        check(step == CKPT_STEP, f"restored step {step}")
+        for (key, got), (_, want) in zip(tree_flatten_with_paths(back),
+                                         tree_flatten_with_paths(copy)):
+            check(got.device == want.device and got.dtype == want.dtype
+                  and torch.equal(got, want), f"restored {key} differs")
+        moved = sum(not torch.equal(a, b) for a, b in
+                    zip(tree_leaves(state), tree_leaves(copy)))
+        check(moved > 0, "training after the save changed nothing")
+        log(f"  {gb:.3f} GB written; save returned after the host copy in "
+            f"{save_s:.2f} s, the write done {write_s:.2f} s after the save "
+            f"began; restore {read_s:.2f} s; the step-{CKPT_STEP} state "
+            f"restored bit for bit while training went on ({moved} leaves "
+            "moved since)")
+        del state, copy, back
+
+        lr = FULL_TRAIN["lr"]
+        kw = dict(reduced=False, num_layers=TRAIN_CUT, batch=B, seq=S, lr=lr,
+                  steps_total=CKPT_STEPS, log_every=100, device=DEV,
+                  print_fn=lambda *a: None)
+        full, full_losses = train_lm(LM_ARCH, **kw)
+        ck = os.path.join(root, "resume")
+        train_lm(LM_ARCH, stop_after=CKPT_STEP, ckpt_dir=ck, ckpt_every=100,
+                 **kw)
+        res, res_losses = train_lm(LM_ARCH, ckpt_dir=ck, resume=True, **kw)
+        same, worst = 0, 0.0
+        flat_full = tree_flatten_with_paths(full)
+        for (key, a), (_, b) in zip(flat_full, tree_flatten_with_paths(res)):
+            if torch.equal(a, b):
+                same += 1
+                continue
+            if not key.startswith("params/"):
+                continue
+            ulp = 2.0 ** -7 * a.float().abs()
+            err = (a.float() - b.float()).abs()
+            bad = err > CKPT_STEPS * (RESUME_TOL_LR * lr + ulp)
+            check(not bad.any(), f"resumed {key}: {int(bad.sum())} weights "
+                  f"off by up to {err.max().item():.3e}")
+            worst = max(worst, err.max().item())
+        for a, b in zip(full_losses[CKPT_STEP:], res_losses):
+            check(abs(a - b) <= 1e-3 * abs(a),
+                  f"resumed losses {res_losses} against {full_losses}")
+        log(f"  resume after {CKPT_STEP} of {CKPT_STEPS} steps: {same} of "
+            f"{len(flat_full)} leaves bit for bit with the uninterrupted run, "
+            f"the largest param difference {worst:.3e}; losses "
+            f"{[round(x, 6) for x in res_losses]} against "
+            f"{[round(x, 6) for x in full_losses[CKPT_STEP:]]}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    check(not os.path.exists(root), f"{root} left behind")
+    torch.cuda.empty_cache()
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     built = _build.build_libraries()
     log(f"built {', '.join(built)} from source, one nvcc each in parallel, "
         f"in {time.perf_counter() - t0:.1f} s")
@@ -1729,11 +2055,17 @@ def main() -> None:
         "campaign": phase_campaign(epoch_ms)["launches"]}
     kernel["launches"] = sum(kernel["launches_by_path"].values())
 
+    phase_train_step()
+    train = phase_train_full()
+    phase_checkpoint()
+
     card = subprocess.run(
         ["nvidia-smi", "--id=0", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
     log(card)
+    log(f"train: {json.dumps(train)}")
+    log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     log(json.dumps({"kernels": [{
         "name": "mpnn_mp", "route": "cuda",
         "source": "src/repro_torch/kernels/mpnn_mp/mpnn_mp.cu",

@@ -6,6 +6,11 @@ defaults included) and of its ``get_config``. Each ported arch has a module
 ``reduced()`` (a tiny same-family config for CPU tests), copied from the JAX
 package. An arch whose layers the port does not have yet raises
 ``NotImplementedError`` naming the ROADMAP slice that brings it.
+
+``ShardingConfig``, ``TrainConfig``, ``param_count``, ``active_param_count``
+and ``model_flops_per_token`` are copies of the JAX package's too. On one
+device only ``ShardingConfig.microbatches`` acts, as in the JAX package on
+a one-device mesh.
 """
 from __future__ import annotations
 
@@ -100,6 +105,29 @@ class ModelConfig:
         return dataclasses.replace(self, **kw)
 
 
+@dataclass(frozen=True)
+class ShardingConfig:
+    mode: str = "dp_tp"        # dp_tp (params replicated over data) | fsdp_tp
+    zero: int = 1              # 0: opt state like params; 1: opt sharded over data
+    shard_cache_seq: bool = True   # decode: shard KV cache sequence over model axis
+    grad_compress: str = "none"    # none | bf16 | int8_ef (cross-pod hop)
+    remat_override: Optional[str] = None
+    microbatches: int = 1      # gradient accumulation steps
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    lr: float = 3e-4
+    warmup_steps: int = 100
+    total_steps: int = 1_000
+    weight_decay: float = 0.1
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    grad_clip: float = 1.0
+    seed: int = 0
+
+
 ARCH_IDS = [
     "granite-20b",
     "gemma2-2b",
@@ -134,3 +162,85 @@ def get_config(arch_id: str, reduced: bool = False) -> ModelConfig:
     mod = importlib.import_module(
         "repro_torch.configs." + arch_id.replace("-", "_").replace(".", "_"))
     return mod.reduced() if reduced else mod.CONFIG
+
+
+# ---------------------------------------------------------------------------
+# Analytic parameter / FLOP accounting (used by roofline + sanity tests)
+# ---------------------------------------------------------------------------
+
+def param_count(cfg: ModelConfig) -> int:
+    """Analytic parameter count for the configured model."""
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    qo = cfg.num_heads * hd
+    kv = cfg.num_kv_heads * hd
+    attn = d * qo + 2 * d * kv + qo * d  # wq, wk, wv, wo
+    if cfg.qk_norm:
+        attn += 2 * hd
+    gated = cfg.act in ("silu", "gelu")
+    mlp_dense = (3 if gated else 2) * d * cfg.d_ff
+
+    def block_norms():
+        return (4 if cfg.post_norm else 2) * d
+
+    total = 0
+    if cfg.rwkv:
+        # time-mix: r,k,v,g,o (d*d each) + decay/low-rank (approx) + channel mix
+        tmix = 5 * d * d + 2 * d * 32 * 2  # lora-ish decay/mix params (approx)
+        cmix = 2 * d * int(cfg.d_ff)
+        total += cfg.num_layers * (tmix + cmix + 2 * d)
+    elif cfg.family == "hybrid":
+        d_inner = cfg.ssm_expand * d
+        mamba = (d * (2 * d_inner + 2 * cfg.ssm_state)  # in_proj(z,x) + B,C
+                 + d_inner * cfg.ssm_conv                # conv
+                 + d_inner                               # dt bias (per channel head)
+                 + d_inner * d)                          # out_proj
+        total += cfg.num_layers * (mamba + block_norms())
+        n_attn = cfg.num_layers // max(cfg.attn_every, 1) if cfg.attn_every else 0
+        if n_attn:
+            total += attn + mlp_dense + block_norms()    # one shared block
+    else:
+        if cfg.is_moe:
+            per_expert = (3 if gated else 2) * d * cfg.d_ff
+            ffn = cfg.num_experts * per_expert + d * cfg.num_experts  # + router
+        else:
+            ffn = mlp_dense
+        layers = cfg.num_layers + cfg.encoder_layers
+        total += layers * (attn + ffn + block_norms())
+        if cfg.encoder_layers:  # decoder cross-attention
+            total += cfg.num_layers * (d * qo + 2 * d * kv + qo * d + d)
+    total += cfg.vocab_size * d          # embedding
+    if not cfg.tie_embeddings:
+        total += cfg.vocab_size * d      # lm head
+    total += d                           # final norm
+    return int(total)
+
+
+def active_param_count(cfg: ModelConfig) -> int:
+    """Active params per token (MoE: top-k experts only)."""
+    if not cfg.is_moe:
+        return param_count(cfg)
+    dense_like = param_count(cfg)
+    gated = cfg.act in ("silu", "gelu")
+    per_expert = (3 if gated else 2) * cfg.d_model * cfg.d_ff
+    layers = cfg.num_layers + cfg.encoder_layers
+    inactive = layers * (cfg.num_experts - cfg.num_experts_per_token) * per_expert
+    return int(dense_like - inactive)
+
+
+# Copied as it stands: the attention term has no factor of num_layers, so
+# the count is low for deep models (ROADMAP.md section 3).
+def model_flops_per_token(cfg: ModelConfig, seq_len: int, training: bool) -> float:
+    """MODEL_FLOPS/token = 6*N_active (train) or 2*N_active (fwd) + attention."""
+    n = active_param_count(cfg) - cfg.vocab_size * cfg.d_model * (1 if cfg.tie_embeddings else 2)
+    mult = 6.0 if training else 2.0
+    flops = mult * n
+    # attention score flops: 2 * 2 * seq * qo per token (causal halves it)
+    if not cfg.is_attention_free:
+        qo = cfg.num_heads * cfg.resolved_head_dim
+        window = seq_len
+        if cfg.sliding_window and not cfg.local_global_period:
+            window = min(seq_len, cfg.sliding_window)
+        flops += mult / 1.5 * 2 * qo * (window / 2)
+    # lm head
+    flops += mult * cfg.d_model * cfg.vocab_size
+    return flops

@@ -12,6 +12,7 @@ the same token with the same weight column, so the function is the same.
 """
 from __future__ import annotations
 
+from repro_torch.kernels import dispatch
 from repro_torch.kernels.moe_gmm import moe_gmm
 from repro_torch.kernels.moe_gmm.ref import gmm_reference
 from repro_torch.models import moe as moe_mod
@@ -24,18 +25,15 @@ __all__ = ["expert_ffn", "gmm", "moe_ffn"]
 def gmm(xe, w, *, impl: str | None = None, live=None):
     """xe (G,M,D) @ w (G,D,F) -> (G,M,F) in xe's dtype.
 
-    impl="kernel" launches the CUDA kernel and raises on CPU tensors;
+    impl="kernel" launches the CUDA kernel and raises on CPU tensors
+    or when an input takes part in a gradient (``kernels/dispatch.py``);
     impl="ref" is the plain version; None picks the kernel for CUDA tensors
     and the plain version for CPU tensors. ``live`` (G,) bool marks the
     groups whose rows of xe are not all zero: the kernel skips the others
     (zeros, no weight read); the plain version is not given it and computes
     every group, which gives the same zeros."""
-    if impl is None:
-        impl = "kernel" if xe.is_cuda else "ref"
+    impl = dispatch.resolve(impl, "moe_gmm", xe, w)
     if impl == "kernel":
-        if not xe.is_cuda:
-            raise ValueError("impl='kernel' needs CUDA tensors; "
-                             "use impl='ref' on the CPU")
         return moe_gmm.gmm_cuda(xe, w, live)
     if impl == "ref":
         return gmm_reference(xe, w)

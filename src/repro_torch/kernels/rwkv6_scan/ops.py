@@ -1,6 +1,7 @@
 """Dispatching wrapper for the RWKV6 WKV scan."""
 from __future__ import annotations
 
+from repro_torch.kernels import dispatch
 from repro_torch.kernels.rwkv6_scan import rwkv6_scan
 from repro_torch.kernels.rwkv6_scan.ref import (wkv6_chunked, wkv6_naive,
                                                 wkv6_step)
@@ -13,15 +14,12 @@ def wkv6(r, k, v, log_w, u, initial_state=None, *, impl: str | None = None,
     """r/k/log_w (B,L,H,K); v (B,L,H,V); u (H,K); initial_state (B,H,K,V)
     or None -> (y (B,L,H,V) in r's dtype, final state f32).
 
-    impl="kernel" launches the CUDA kernel and raises on CPU tensors;
+    impl="kernel" launches the CUDA kernel and raises on CPU tensors
+    or when an input takes part in a gradient (``kernels/dispatch.py``);
     "ref" is the plain chunked version and "naive" the step-by-step one;
     None picks the kernel for CUDA tensors and "ref" for CPU tensors."""
-    if impl is None:
-        impl = "kernel" if r.is_cuda else "ref"
+    impl = dispatch.resolve(impl, "rwkv6_scan", r, k, v, log_w, u, initial_state)
     if impl == "kernel":
-        if not r.is_cuda:
-            raise ValueError("impl='kernel' needs CUDA tensors; "
-                             "use impl='ref' on the CPU")
         return rwkv6_scan.wkv6_cuda(r, k, v, log_w, u, initial_state,
                                     chunk=chunk)
     if impl == "ref":

@@ -6,15 +6,15 @@ the MoE stack, the zamba2 hybrid stack and the RWKV6 stack).
     logits, aux = forward(params, cfg, batch)      # full sequence
     logits, cache = prefill(params, cfg, batch)    # last-position logits
     logits, cache = decode_step(params, cfg, cache, tokens, cur_len)
+    loss, metrics = loss_fn(params, cfg, batch)   # training
 
-batch: {"tokens": (B,S) integers}; positions are 0..S-1. The parameter
-tree has the JAX package's names, shapes and layouts (``tok``,
-``final_norm``, ``stack/uniform`` stacked over layers; for zamba2
-``stack/mamba_main`` stacked over (groups, attn_every), ``stack/mamba_tail``
-and ``stack/shared_attn``; for RWKV6 ``stack/rwkv`` stacked over layers).
-The "embeds" and
-"positions" inputs of the stub-frontend archs, the enc-dec branches and
-``loss_fn`` wait for their slices.
+batch: {"tokens": (B,S) integers} (and "labels", "loss_mask" for the loss);
+positions are 0..S-1. The parameter tree has the JAX package's names,
+shapes and layouts (``tok``, ``final_norm``, ``stack/uniform`` stacked over
+layers; for zamba2 ``stack/mamba_main`` stacked over (groups, attn_every),
+``stack/mamba_tail`` and ``stack/shared_attn``; for RWKV6 ``stack/rwkv``
+stacked over layers). The "embeds" and "positions" inputs of the
+stub-frontend archs and the enc-dec branches wait for their slices.
 """
 from __future__ import annotations
 
@@ -26,7 +26,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import transformer
 from repro_torch.models.layers import (InitMaker, dtype_of, embed,
                                        embedding_params, rmsnorm,
-                                       rmsnorm_params, unembed)
+                                       rmsnorm_params, softmax_cross_entropy,
+                                       unembed)
 
 
 def model_params(mk, cfg: ModelConfig):
@@ -64,6 +65,20 @@ def forward(params, cfg: ModelConfig, batch):
                                       sin=sin)
     h = rmsnorm(params["final_norm"], h, cfg.norm_eps)
     return unembed(params["tok"], h, cfg), aux
+
+
+def loss_fn(params, cfg: ModelConfig, batch):
+    """(loss, {"ce", "aux", "tokens"}): the f32 cross-entropy of the
+    next-token labels (over ``loss_mask`` where given), plus
+    ``router_aux_coef`` times the summed load-balance loss for MoE."""
+    logits, aux = forward(params, cfg, batch)
+    ce, count = softmax_cross_entropy(logits, batch["labels"],
+                                      batch.get("loss_mask"))
+    loss = ce
+    if cfg.is_moe:
+        loss = loss + cfg.router_aux_coef * aux
+    metrics = {"ce": ce, "aux": aux, "tokens": count}
+    return loss, metrics
 
 
 def prefill(params, cfg: ModelConfig, batch, reserve: Optional[int] = None):

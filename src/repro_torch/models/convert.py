@@ -8,6 +8,10 @@ function; ``params_to_numpy`` is its inverse. ``lm_params_from_numpy``
 takes a language model's nested tree,
 ``jax.tree.map(np.asarray, repro.models.api.init_params(cfg, key))``, and
 returns the same tree of tensors for ``repro_torch.models.api``.
+``train_state_from_numpy`` carries a whole train state across, ``{"params",
+"opt": AdamWState(step, m, v)}`` as numpy (the JAX state through
+``jax.tree.map(np.asarray, ...)``), into the port's
+``launch.steps`` state.
 """
 from __future__ import annotations
 
@@ -19,6 +23,7 @@ from repro_torch.configs.mpnn_surrogate import MPNNConfig
 from repro_torch.models import api
 from repro_torch.models.layers import ShapeMaker, dtype_of
 from repro_torch.models.mpnn import param_shapes
+from repro_torch.optim.adamw import AdamWState
 
 
 def params_from_numpy(tree: dict[str, np.ndarray], device) -> dict[str, torch.Tensor]:
@@ -94,3 +99,21 @@ def lm_params_from_numpy(tree: dict, cfg: ModelConfig, device) -> dict:
         return tensor_from_numpy(a, device)
 
     return walk(tree, want, "")
+
+
+def train_state_from_numpy(tree: dict, cfg: ModelConfig, device) -> dict:
+    """``{"params", "opt"}`` with ``opt`` any (step, m, v) named tuple of
+    numpy arrays (the JAX ``AdamWState``) -> the port's train state on
+    ``device``, bit for bit: the params as ``lm_params_from_numpy`` checks
+    them, m and v f32 trees of the params' shapes, step a 0-d int32."""
+    params = lm_params_from_numpy(tree["params"], cfg, device)
+    step, m, v = tree["opt"]
+    step = np.asarray(step)
+    if step.shape != () or step.dtype != np.int32:
+        raise ValueError(f"opt/.step: {step.dtype} {step.shape}, expected a "
+                         "0-d int32")
+    f32 = cfg.replace(param_dtype="float32")
+    return {"params": params, "opt": AdamWState(
+        step=tensor_from_numpy(step, device),
+        m=lm_params_from_numpy(m, f32, device),
+        v=lm_params_from_numpy(v, f32, device))}

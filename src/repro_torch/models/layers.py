@@ -1,5 +1,5 @@
 """Shared building blocks of the language models: the parameter makers,
-norms, RoPE and the embedding. The port of ``repro/models/layers.py``.
+norms, RoPE, the embedding and the token-level cross-entropy. The port of ``repro/models/layers.py``.
 
 Every module defines its parameters once, in a ``*_params(mk, cfg)``
 function; the maker ``mk`` decides what comes out: ``InitMaker`` draws
@@ -151,7 +151,11 @@ def embedding_params(mk, cfg: ModelConfig):
 
 
 def embed(params, tokens, cfg: ModelConfig):
-    h = params["embed"][tokens].to(dtype_of(cfg.compute_dtype))
+    # F.embedding, not indexing: on the CPU its backward sums the rows of
+    # repeated tokens in a fixed order, where indexing's accumulating
+    # index_put does not
+    h = torch.nn.functional.embedding(tokens, params["embed"]).to(
+        dtype_of(cfg.compute_dtype))
     if cfg.emb_scale:
         h = h * torch.tensor(math.sqrt(cfg.d_model), dtype=h.dtype,
                              device=h.device)
@@ -165,3 +169,26 @@ def unembed(params, h, cfg: ModelConfig):
         cap = cfg.final_logit_softcap
         logits = cap * torch.tanh(logits.float() / cap)
     return logits
+
+
+# ---------------------------------------------------------------------------
+# Losses
+# ---------------------------------------------------------------------------
+
+
+def softmax_cross_entropy(logits, labels, mask=None):
+    """Token-level CE. logits (B,S,V) any float dtype; labels (B,S) integers.
+
+    Computed in f32 with the logsumexp trick. Returns (mean_loss,
+    token_count), both 0-d f32."""
+    logits = logits.float()
+    m = logits.amax(-1, keepdim=True)
+    lse = m[..., 0] + torch.log(torch.exp(logits - m).sum(-1))
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = lse - gold
+    if mask is None:
+        mask = torch.ones_like(nll)
+    mask = mask.float()
+    total = (nll * mask).sum()
+    count = torch.clamp(mask.sum(), min=1.0)
+    return total / count, count

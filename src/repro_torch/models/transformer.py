@@ -5,14 +5,29 @@ The JAX package scans stacked (L, ...) parameters with ``lax.scan``; the port
 keeps the same stacked layout and loops over layers in Python. The same
 blocks serve the full-sequence forward (no cache), prefill (collect the
 cache) and decode (write the cache at ``cur_len`` and attend over it, or
-carry the recurrent states). The uniform stack takes the MoE FFN for the
-moe family, and every pass sums the layers' load-balance losses. The gemma2
-local/global stack and the enc-dec stacks wait for their slices (ROADMAP.md
-section 1).
+carry the recurrent states). Each pass unbinds the stacked parameters once:
+under autograd, indexing layer i of a stack would make its backward write a
+zero tensor the size of the whole stack for every layer.
+
+With grad on, the full-sequence forward rematerialises the bodies the JAX
+package wraps in ``_ckpt``: each dense/MoE block, each RWKV block, each
+zamba2 group (and each Mamba2 block inside it and in the tail).
+``cfg.remat`` picks how: "block" recomputes the whole body in the backward
+pass, "policy" saves the matmul outputs and recomputes the rest (the
+counterpart of ``dots_with_no_batch_dims_saveable``), "none" saves
+everything.
+
+The uniform stack takes the MoE FFN for the moe family, and every pass sums
+the layers' load-balance losses. The gemma2 local/global stack and the
+enc-dec stacks wait for their slices (ROADMAP.md section 1).
 """
 from __future__ import annotations
 
+import functools
+
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
@@ -131,9 +146,39 @@ def apply_mamba_block(p, h, cfg: ModelConfig, cache=None):
     return h + m_out, new_cache
 
 
-def _layer(tree, i):
-    return {k: _layer(v, i) if isinstance(v, dict) else v[i]
-            for k, v in tree.items()}
+def _layers(tree) -> list:
+    """The per-layer trees of a tree stacked over its leading axis."""
+    if not isinstance(tree, dict):
+        return tree.unbind(0)
+    parts = {k: _layers(v) for k, v in tree.items()}
+    n = len(next(iter(parts.values())))
+    return [{k: v[i] for k, v in parts.items()} for i in range(n)]
+
+
+# Matmuls without batch dimensions (activations @ weights) lower to mm or
+# addmm; the attention einsums, which have batch dimensions, lower to bmm.
+_SAVED_BY_POLICY = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_matmuls(ctx, op, *args, **kwargs):
+    del ctx, args, kwargs
+    return (CheckpointPolicy.MUST_SAVE if op in _SAVED_BY_POLICY
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _ckpt(fn, cfg: ModelConfig, cache):
+    """``fn`` rematerialised as ``cfg.remat`` says, on the full-sequence
+    forward with grad on; ``fn`` itself otherwise (prefill, decode, no
+    grad, remat "none")."""
+    if cfg.remat == "none" or cache is not None or not torch.is_grad_enabled():
+        return fn
+    kw = {}
+    if cfg.remat == "policy":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _save_matmuls)
+    elif cfg.remat != "block":
+        raise ValueError(f"unknown remat {cfg.remat!r}")
+    return lambda *args: checkpoint(fn, *args, use_reentrant=False, **kw)
 
 
 def run_stack(params, h, cfg: ModelConfig, *, cos, sin, cache=None,
@@ -154,15 +199,16 @@ def run_stack(params, h, cfg: ModelConfig, *, cos, sin, cache=None,
     kw = dict(cos=cos, sin=sin, cur_len=cur_len, collect_cache=collect_cache)
     if cfg.family == "hybrid":
         return _run_zamba_stack(params, h, cfg, cache, **kw), cache, aux
-    for i in range(cfg.num_layers):
-        h, a = _attention_layer(_layer(params["uniform"], i), h, cfg, cache,
-                                i, **kw)
+    layer = _ckpt(functools.partial(_attention_layer, cfg=cfg, kv=cache, **kw),
+                  cfg, cache)
+    for i, p in enumerate(_layers(params["uniform"])):
+        h, a = layer(p, h, i)
         if a is not None:
             aux = aux + a
     return h, cache, aux
 
 
-def _attention_layer(p, h, cfg, kv, i, *, cos, sin, cur_len, collect_cache):
+def _attention_layer(p, h, i, *, cfg, kv, cos, sin, cur_len, collect_cache):
     """One dense block against layer ``i`` of the stacked KV cache ``kv``
     (None: no cache). Prefill writes the fresh K/V at positions [0, S);
     decode writes the new position in place. Returns (h, the layer's MoE
@@ -188,10 +234,10 @@ def _run_rwkv_stack(params, h, cfg, cache):
     a prompt longer than one token runs the WKV scan and a one-token prompt
     the decode step; each block's new states are written into the cache in
     place, in prefill and in decode."""
-    for i in range(cfg.num_layers):
-        p = _layer(params, i)
+    block = _ckpt(lambda p, h: apply_rwkv_block(p, h, cfg)[0], cfg, cache)
+    for i, p in enumerate(_layers(params)):
         if cache is None:
-            h = apply_rwkv_block(p, h, cfg)[0]
+            h = block(p, h)
             continue
         h, new = apply_rwkv_block(p, h, cfg,
                                   {name: t[i] for name, t in cache.items()})
@@ -213,9 +259,12 @@ def _run_zamba_stack(params, h, cfg, cache, **kw):
     ae = max(cfg.attn_every, 1)
     groups, tail = divmod(cfg.num_layers, ae)
 
+    mamba_block = _ckpt(lambda p, h: apply_mamba_block(p, h, cfg)[0], cfg,
+                        cache)
+
     def mamba(p, h, layer):
         if cache is None:
-            return apply_mamba_block(p, h, cfg)[0]
+            return mamba_block(p, h)
         m = cache["mamba"]
         h, new = apply_mamba_block(
             p, h, cfg, {"conv": m["conv"][layer], "ssm": m["ssm"][layer]})
@@ -224,13 +273,19 @@ def _run_zamba_stack(params, h, cfg, cache, **kw):
         return h
 
     kv = None if cache is None else cache["attn"]
-    for g in range(groups):
-        group_p = _layer(params["mamba_main"], g)
-        for i in range(ae):
-            h = mamba(_layer(group_p, i), h, g * ae + i)
-        h = _attention_layer(params["shared_attn"], h, cfg, kv, g, **kw)[0]
-    for t in range(tail):
-        h = mamba(_layer(params["mamba_tail"], t), h, groups * ae + t)
+
+    def group(group_p, h, g):
+        for i, p in enumerate(_layers(group_p)):
+            h = mamba(p, h, g * ae + i)
+        return _attention_layer(params["shared_attn"], h, g, cfg=cfg, kv=kv,
+                                **kw)[0]
+
+    group = _ckpt(group, cfg, cache)
+    for g, group_p in enumerate(_layers(params["mamba_main"])):
+        h = group(group_p, h, g)
+    if tail:
+        for t, p in enumerate(_layers(params["mamba_tail"])):
+            h = mamba(p, h, groups * ae + t)
     return h
 
 

@@ -1,1 +1,1 @@
-from repro_torch.utils import timing  # noqa: F401
+from repro_torch.utils import timing, trees

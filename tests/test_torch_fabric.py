@@ -72,10 +72,6 @@ _NDCODEC_DECODE_NEW = '''    ``data``, whatever the frame's kind (a "jax" frame 
 
 # module -> [(text of the renamed original, text of the copy, reason)]
 DELTAS = {
-    "utils/__init__.py": [(
-        "from repro_torch.utils import timing, trees\n",
-        "from repro_torch.utils import timing  # noqa: F401\n",
-        "trees computes with jax; the port's fabric needs only timing")],
     "core/__init__.py": [
         ("from repro_torch.core.cluster import (ClusterLauncher, ClusterSpec,"
          "  # noqa: F401\n                                HostSpec)\n", "",
