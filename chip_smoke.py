@@ -166,6 +166,49 @@ Phases:
      checkpoint against the uninterrupted run: losses within 1e-3 relative,
      weights within ``RESUME_TOL_LR`` lr plus one bf16 ulp a step. Reports
      GB written and seconds.
+ 26. Hold the flash-attention kernel against its plain version at head dim
+     256 (gemma2), f32 and bf16: a window that starts inside a 64-key tile
+     with a softcap of 50, GQA 8/4 and a ragged last tile; a softcap of 2;
+     a decode-like offset; one prompt of 5120 past a 4096 window; and at
+     the cross-attention shape, non-causal with Sq != Sk at hd 64. Then in
+     bf16 at each new arch's serving shape: gemma2 (8, 2048, 8 heads, 4 KV
+     heads, hd 256, window 4096, softcap 50), seamless's cross-attention
+     (8 x 2048 queries against 1536 frames, 16 heads of 64) and qwen2-vl
+     (8, 2048, 64 heads, 8 KV heads, hd 128).
+ 27. Build gemma2-2b at its published widths and depth (26 layers in 13
+     local/global periods, d_model 2304, 8 heads / 4 KV heads of 256, d_ff
+     9216, vocab 256000, window 4096, softcaps 50 and 30) with seeded random
+     f32 weights, and hold one prefill of 1 x 5120 tokens (past the window,
+     so the 13 local layers mask in the kernel) through the kernel against
+     the plain attention: logits and the KV cache; without the window the
+     logits must move. Then the same weights in bf16, held as in phase 10
+     (logits and K/V at most BF16_PREFILL_RATIO times as far from f32 as the
+     plain bf16 prefill).
+ 28. Serve gemma2-2b in bf16 through ``Engine``: 3 requests of 8 x 2048
+     tokens, 32 new, then one of 2 x 8192 (the window bites in the kernel's
+     prefill and in the plain decode over the cache); 26 flash launches a
+     request, counted from 0 around each.
+ 29. Build seamless-m4t-medium at its published widths (12 encoder and 12
+     decoder layers, d_model 1024, 16 heads of 64, vocab 256206) in f32 and
+     hold one prefill (B=2, S=1024 tokens, 768 random frames) through the
+     kernel (encoder self-attention, decoder self- and cross-attention, 36
+     launches) against the plain attention: logits, self and cross K/V;
+     zero frames in place of the random ones must move the logits.
+ 30. Serve seamless-m4t-medium in bf16 through ``Engine``: 3 requests of 8 x
+     2048 tokens with 1536 random frames each, 32 new; 36 flash launches a
+     request.
+ 31. Build qwen2-vl-72b at its published widths (d_model 8192, 64 heads / 8
+     KV heads of 128, d_ff 29568, vocab 152064, M-RoPE sections 16/24/24)
+     cut to 2 layers in f32, and hold one prefill of 2 x 1024 embeddings (a
+     24 x 32 grid of image patches, then text, at distinct temporal /
+     height / width positions) through the kernel against the plain
+     attention; plain RoPE in place of M-RoPE must move the logits.
+ 32. Serve qwen2-vl-72b cut to 24 of its 80 layers in bf16 through
+     ``Engine``: 3 requests of 8 x 2048 tokens, 32 new; 24 flash launches a
+     request.
+ 33. Report: time the flash kernel, its plain version and SDPA at the
+     gemma2, cross-attention and qwen2-vl serving shapes (SDPA has no logit
+     softcap: at gemma2's shape its time without cap and window is a note).
 
 The kernels are built first, one ``nvcc`` per source, all in parallel;
 ``ptxas`` reports each kernel's registers and spills. Every time (kernel,
@@ -180,6 +223,7 @@ without a CUDA device or when any check fails.
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import math
 import os
@@ -257,6 +301,9 @@ FA_CASES = [
     (1, 64, 64, 2, 2, 128, True, 32, 30.0, 0),
 ]
 SERVE_REQUESTS, SERVE_BATCH, SERVE_PROMPT, SERVE_MAX_NEW = 3, 8, 2048, 32
+# Device memory that gc.collect() may free before a serving phase: an
+# earlier phase's tensors held only by reference cycles.
+GC_FREED_MAX = 64 * 2**20
 # The prefill attention of internlm2-1.8b at the serving batch.
 FA_SERVING = (SERVE_BATCH, SERVE_PROMPT, SERVE_PROMPT, 16, 8, 128, True,
               None, None, 0)
@@ -414,6 +461,55 @@ CKPT_STEP, CKPT_STEPS = 2, 4
 # 0.95, so at most 2.02 lr a step) plus one bf16 ulp of the weight a step,
 # over all CKPT_STEPS steps.
 RESUME_TOL_LR = 2.02
+
+
+# Phases 26-31: the archs with gemma2's local/global stack, the enc-dec
+# stack and M-RoPE.
+GEMMA_ARCH = "gemma2-2b"
+ENCDEC_ARCH = "seamless-m4t-medium"
+VLM_ARCH = "qwen2-vl-72b"
+# gemma2's f32 prefill: one prompt longer than the 4096 window, so the 13
+# local layers mask in the kernel.
+GEMMA_PREFILL_SHAPE = (1, 5120)
+# One more gemma2 request: 2 prompts of 8192, so the window bites in the
+# kernel's prefill and in the plain decode over the cache.
+GEMMA_LONG = (2, 8192)
+# seamless-m4t-medium: random frames (zero frames give zero cross K/V) of a
+# length other than the prompt's, so cross-attention has Sq != Sk.
+ENCDEC_PREFILL_FRAMES = 768
+ENCDEC_SERVE_FRAMES = 1536
+# qwen2-vl-72b: the f32 hold cut to 2 layers (17 GiB with the f32
+# embeddings), serving cut to 24 of the 80 layers (42 GB of bf16 layers and
+# 5 GB of embeddings; the published 80, ~144 GB, do not fit one card). The
+# f32 prompt is an image of VLM_GRID patches, then text (``vl_positions``).
+VLM_PREFILL_LAYERS = 2
+VLM_SERVE_LAYERS = 24
+VLM_GRID = (24, 32)
+# The flash kernel at head dim 256 and at the cross shape, off the tiles:
+# a window that starts inside a 64-key tile with gemma2's softcap and GQA
+# 8/4 and a ragged last tile, a cap of 2 (which moves these scores by O(1)),
+# a decode-like offset, the f32 prefill's 5120 past its 4096 window, and
+# non-causal Sq != Sk at hd 64.
+FA_NEW_CASES = [
+    (2, 300, 300, 8, 4, 256, True, 100, 50.0, 0),
+    (1, 200, 200, 8, 4, 256, True, 70, 2.0, 0),
+    (1, 37, 333, 8, 4, 256, True, None, None, 296),
+    (1, 5120, 5120, 8, 4, 256, True, 4096, 50.0, 0),
+    (2, 300, 200, 16, 16, 64, False, None, None, 0),
+    (2, 128, 384, 16, 16, 64, False, None, None, 0),
+]
+# The prefill attention of each arch at the serving batch, in bf16: gemma2's
+# local layers (window 4096, softcap 50), seamless's cross-attention
+# against 1536 frames and its encoder's self-attention over them, and
+# qwen2-vl's GQA 64/8.
+FA_GEMMA = (SERVE_BATCH, SERVE_PROMPT, SERVE_PROMPT, 8, 4, 256, True, 4096,
+            50.0, 0)
+FA_CROSS = (SERVE_BATCH, SERVE_PROMPT, ENCDEC_SERVE_FRAMES, 16, 16, 64, False,
+            None, None, 0)
+FA_ENC = (SERVE_BATCH, ENCDEC_SERVE_FRAMES, ENCDEC_SERVE_FRAMES, 16, 16, 64,
+          False, None, None, 0)
+FA_VLM = (SERVE_BATCH, SERVE_PROMPT, SERVE_PROMPT, 64, 8, 128, True, None,
+          None, 0)
 
 
 def log(msg: str) -> None:
@@ -657,6 +753,11 @@ def phase_lm_prefill() -> None:
     hold_prefill(B, S, cfg, got, want, got_cache, want_cache)
 
 
+def _take_rows(tree, rows):
+    return {k: _take_rows(v, rows) if isinstance(v, dict) else v[:, rows]
+            for k, v in tree.items()}
+
+
 def hold_prefill(B, S, cfg, got, want, got_cache, want_cache,
                  rows=None, stage: str = "prefill") -> None:
     """Kernel prefill against plain prefill: logits and every cache leaf
@@ -665,11 +766,9 @@ def hold_prefill(B, S, cfg, got, want, got_cache, want_cache,
     check(got.shape == (B, cfg.vocab_size) and bool(torch.isfinite(got).all()),
           f"{stage} logits {tuple(got.shape)} not finite or misshapen")
     if rows is not None:
-        def take(tree):
-            return {k: take(v) if isinstance(v, dict) else v[:, rows]
-                    for k, v in tree.items()}
         got, want = got[rows], want[rows]
-        got_cache, want_cache = take(got_cache), take(want_cache)
+        got_cache = _take_rows(got_cache, rows)
+        want_cache = _take_rows(want_cache, rows)
     for what, a, b in (("logits", got, want),
                        *((f"cache {path}", a, b) for (path, a), (_, b) in
                          zip(_named_leaves(got_cache),
@@ -683,13 +782,15 @@ def hold_prefill(B, S, cfg, got, want, got_cache, want_cache,
 
 
 def hold_bf16_prefill(params, cfg, tokens, f32_logits, f32_cache,
-                      state: str, counters) -> dict:
+                      state, counters) -> dict:
     """The f32 weights ``params`` cast to bf16: prefill through the kernels
     and prefill through the plain versions, the logits and every cache leaf
-    named ``state`` of each held against the plain f32 prefill
-    (``f32_logits``, ``f32_cache``) by BF16_PREFILL_RATIO. ``counters`` maps
-    a kernel module to the design its bf16 launches must report; each must
-    run once a layer in the kernel pass and never in the plain one."""
+    named ``state`` (a name or a tuple of names) of each held against the
+    plain f32 prefill (``f32_logits``, ``f32_cache``) by BF16_PREFILL_RATIO.
+    ``counters`` maps a kernel module to the design its bf16 launches must
+    report; each must run once a layer in the kernel pass and never in the
+    plain one."""
+    names = (state,) if isinstance(state, str) else state
     cfg16 = cfg.replace(param_dtype="bfloat16", compute_dtype="bfloat16")
     p16 = _cast_tree(params, torch.bfloat16)
     before = {m: dict(m.LAUNCHES_BY_DESIGN) for m in counters}
@@ -710,7 +811,8 @@ def hold_bf16_prefill(params, cfg, tokens, f32_logits, f32_cache,
     pairs = [("logits", got, want, f32_logits)] + [
         (path, a, b, c) for (path, a), (_, b), (_, c) in
         zip(_named_leaves(got_cache), _named_leaves(want_cache),
-            _named_leaves(f32_cache)) if path.endswith("/" + state)]
+            _named_leaves(f32_cache))
+        if path.endswith(tuple("/" + n for n in names))]
     out = {}
     for what, a, b, c in pairs:
         a, b, c = a.double(), b.double(), c.double()
@@ -763,18 +865,23 @@ def phase_lm_serve() -> dict:
                  {"flash_attention": (flash_attention, cfg.num_layers)})
 
 
-def serve(phase: int, cfg, seed: int, kernels: dict, prepare=None) -> dict:
-    """Answer SERVE_REQUESTS requests through ``Engine``. ``kernels`` maps a
-    kernel's name to (its module, launches per request); every count is set
-    to 0 just before the requests and must read REQUESTS x per request just
-    after them. ``prepare(params, gen)``, if given, edits the drawn weights
-    in place before serving."""
-    log(f"phase {phase}: serve {SERVE_REQUESTS} requests of {SERVE_BATCH} x "
-        f"{SERVE_PROMPT} tokens, {SERVE_MAX_NEW} new, {cfg.name} in bf16")
-    gen = torch.Generator(device=DEV).manual_seed(seed)
-    params = lm_api.init_params(cfg, gen, device=DEV)
-    if prepare is not None:
-        prepare(params, gen)
+def serve(phase: int, cfg, seed: int, kernels: dict, *,
+          requests: int = SERVE_REQUESTS, batch: int = SERVE_BATCH,
+          prompt: int = SERVE_PROMPT, params=None, frames_len=None) -> dict:
+    """Answer ``requests`` requests of ``batch`` x ``prompt`` tokens through
+    ``Engine``. ``kernels`` maps a kernel's name to (its module, launches
+    per request); every count is set to 0 just before the requests and must
+    read requests x per request just after them. ``params``, if given, are
+    served instead of weights drawn from ``seed``. ``frames_len``: an
+    enc-dec model's encoder reads seeded random frames of this many
+    positions. What an earlier phase left to the cyclic collector must be
+    under GC_FREED_MAX: the port's objects free their tensors by reference
+    counting."""
+    log(f"phase {phase}: serve {requests} request(s) of {batch} x {prompt} "
+        f"tokens, {SERVE_MAX_NEW} new, {cfg.name} in bf16")
+    if params is None:
+        gen = torch.Generator(device=DEV).manual_seed(seed)
+        params = lm_api.init_params(cfg, gen, device=DEV)
     engine = Engine(cfg, params, max_new=SERVE_MAX_NEW)
     rng = np.random.default_rng(seed)
     times = {"prefill": [], "decode": []}
@@ -800,24 +907,37 @@ def serve(phase: int, cfg, seed: int, kernels: dict, prepare=None) -> dict:
     plain = lm_api.prefill, lm_api.decode_step
     lm_api.prefill, lm_api.decode_step = finite(plain[0]), finite(plain[1])
     torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    gc.collect()
+    freed = resident - torch.cuda.memory_allocated()
+    weights = sum(t.numel() * t.element_size() for t in _leaves(params))
+    log(f"  device memory before the requests {resident / 2**30:.2f} GiB "
+        f"(weights {weights / 2**30:.2f} GiB); gc.collect() freed "
+        f"{freed / 2**20:.1f} MiB")
+    check(freed < GC_FREED_MAX, f"{freed / 2**20:.1f} MiB of device memory "
+          "was held only by reference cycles")
     torch.cuda.reset_peak_memory_stats()
     for module, _ in kernels.values():
         module.LAUNCHES = 0
         if hasattr(module, "LAUNCHES_BY_DESIGN"):
             module.LAUNCHES_BY_DESIGN = dict.fromkeys(module.DESIGNS, 0)
     try:
-        for r in range(SERVE_REQUESTS):
+        for r in range(requests):
             times["prefill"].clear()
             times["decode"].clear()
-            prompts = lm_tokens(rng, SERVE_BATCH, SERVE_PROMPT, cfg.vocab_size)
+            prompts = lm_tokens(rng, batch, prompt, cfg.vocab_size)
+            frames = None
+            if frames_len is not None:
+                frames = rng.standard_normal(
+                    (batch, frames_len, cfg.d_model)).astype(np.float32)
             t0 = time.perf_counter()
-            out = engine.generate(prompts)
+            out = engine.generate(prompts, frames=frames)
             wall = time.perf_counter() - t0
-            check(out.shape == (SERVE_BATCH, SERVE_PROMPT + SERVE_MAX_NEW),
+            check(out.shape == (batch, prompt + SERVE_MAX_NEW),
                   f"request {r}: output {out.shape}")
-            check(np.array_equal(out[:, :SERVE_PROMPT], prompts),
+            check(np.array_equal(out[:, :prompt], prompts),
                   f"request {r}: prompts not echoed")
-            new = out[:, SERVE_PROMPT:]
+            new = out[:, prompt:]
             check(bool(((new >= 0) & (new < cfg.vocab_size)).all()),
                   f"request {r}: token outside the vocabulary")
             log(f"  request {r}: prefill {times['prefill'][0] * 1e3:.1f} ms, "
@@ -826,18 +946,20 @@ def serve(phase: int, cfg, seed: int, kernels: dict, prepare=None) -> dict:
                 f"row 0 tail {new[0, -6:].tolist()}")
     finally:
         lm_api.prefill, lm_api.decode_step = plain
+        # the wrappers hold the engine's bound methods: a cycle through it
+        del engine.prefill_batch, engine.decode_batch
     launches = {name: module.LAUNCHES for name, (module, _) in kernels.items()}
     check(bad_logits.item() == 0, f"{bad_logits.item()} non-finite logits")
     log(f"  all logits finite; launches " + ", ".join(
             f"{name} {launches[name]} ({per} per request)"
             for name, (_, per) in kernels.items())
         + f"; steady-state {engine.throughput():.1f} tok/s over "
-        f"{SERVE_REQUESTS - 1} warm requests; peak device memory "
+        f"{requests - 1} warm requests; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     for name, (_, per) in kernels.items():
-        check(launches[name] == SERVE_REQUESTS * per,
+        check(launches[name] == requests * per,
               f"{name} launched {launches[name]} times, expected "
-              f"{SERVE_REQUESTS * per}")
+              f"{requests * per}")
     out = {name: {"launches": launches[name], "launches_per_request": per}
            for name, (_, per) in kernels.items()}
     for name, (module, _) in kernels.items():
@@ -860,26 +982,64 @@ def phase_flash_report() -> dict:
     return time_flash(FA_SERVING, SEED + 6)
 
 
+def flex_call(qt, kt, vt, kw):
+    """One compiled ``flex_attention`` call computing the kernel's function
+    on (B, H, S, hd) inputs where SDPA cannot: the tanh softcap as a score
+    mod, the causal mask and look-back window as a block mask."""
+    from torch.nn.attention.flex_attention import (create_block_mask,
+                                                   flex_attention)
+    cap, window, causal = kw["softcap"], kw["window"], kw["causal"]
+
+    def score_mod(score, b, h, qi, ki):
+        return score if cap is None else cap * torch.tanh(score / cap)
+
+    def mask_mod(b, h, qi, ki):
+        keep = qi >= ki if causal else ki >= 0
+        return keep if window is None else keep & (qi - ki < window)
+
+    mask = create_block_mask(mask_mod, None, None, qt.shape[2], kt.shape[2],
+                             device=qt.device)
+    flex = torch.compile(flex_attention, dynamic=False)
+    return lambda: flex(qt, kt, vt, score_mod=score_mod, block_mask=mask,
+                        enable_gqa=True)
+
+
 def time_flash(case, seed: int) -> dict:
-    """Kernel, plain version and SDPA at ``case`` in bf16, beside the
-    bound."""
+    """Kernel, plain version and the library call at ``case`` in bf16,
+    beside the bound. The library call is SDPA where it computes the same
+    function; SDPA has no logit softcap and no look-back window, so at a
+    case with either it is ``flex_attention`` (compiled, held against the
+    plain version first) and SDPA's time without them is logged as a note."""
     gen = torch.Generator(device=DEV).manual_seed(seed)
     (q, k, v), kw = fa_inputs(case, torch.bfloat16, gen)
     ms = median_ms(lambda: fa_ops.attention(q, k, v, impl="kernel", **kw))
     plain_ms = median_ms(lambda: attention_reference(q, k, v, **kw))
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    library_ms = median_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True, enable_gqa=True))
+    check(kw["q_offset"] == 0, "SDPA's causal mask has no query offset")
+    sdpa_ms = median_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=kw["causal"], enable_gqa=True))
+    exact = kw["softcap"] is None and kw["window"] is None
+    library_ms, library = sdpa_ms, "scaled_dot_product_attention"
+    if not exact:
+        flex = flex_call(qt, kt, vt, kw)
+        err = (flex().transpose(1, 2).float()
+               - attention_reference(q, k, v, **kw).float()).abs().max().item()
+        check(err <= FA_TOL[torch.bfloat16],
+              f"flex_attention against the plain version: {err}")
+        library_ms, library = median_ms(flex), "flex_attention"
+        log(f"  flex_attention (softcap score mod, causal + window block "
+            f"mask, compiled) vs plain max abs err {err:.3e}")
     B, Sq, H, hd = q.shape
     moved = sum(t.numel() * t.element_size() for t in (q, k, v, q))
     flops = 4 * hd * B * H * live_pairs(Sq, k.shape[1], kw["causal"],
                                         kw["window"], kw["q_offset"])
     bytes_ms = moved / HBM_BYTES_PER_S * 1e3
     flops_ms = flops / BF16_FLOP_PER_S * 1e3
-    log(f"  {case[:6]}: kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s), "
-        f"plain {plain_ms:.3f} ms, "
-        f"scaled_dot_product_attention {library_ms:.3f} ms "
-        f"({flops / library_ms / 1e9:.1f} TFLOP/s); bound "
+    lib = f"{library} {library_ms:.3f} ms ({flops / library_ms / 1e9:.1f} TFLOP/s)"
+    if not exact:
+        lib += f"; note: SDPA without the softcap and window {sdpa_ms:.3f} ms"
+    log(f"  {case[:6]} {kw}: kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} "
+        f"TFLOP/s), plain {plain_ms:.3f} ms, {lib}; bound "
         f"{max(bytes_ms, flops_ms):.3f} ms ({flops / 1e9:.1f} GFLOP at "
         f"{BF16_FLOP_PER_S / 1e12:.0f} TFLOP/s = {flops_ms:.3f} ms; "
         f"{moved / 2**20:.0f} MiB at {HBM_BYTES_PER_S / 1e12:.2f} TB/s = "
@@ -887,8 +1047,10 @@ def time_flash(case, seed: int) -> dict:
     return {"ms": ms, "plain_ms": plain_ms,
             "bound_ms": max(bytes_ms, flops_ms),
             "bound_by": "bytes" if bytes_ms >= flops_ms else "operations",
-            "library_ms": library_ms, "shape": list(case[:6]),
-            "dtype": "bfloat16", "tflops": flops / ms / 1e9}
+            "library_ms": library_ms, "library": library,
+            "shape": list(case[:6]), "dtype": "bfloat16",
+            "tflops": flops / ms / 1e9,
+            **({} if exact else {"sdpa_without_cap_or_window_ms": sdpa_ms})}
 
 
 def ssd_inputs(case, dtype, gen, la_dtype=torch.float32):
@@ -1143,9 +1305,12 @@ def phase_rwkv_prefill() -> dict:
 
 def phase_rwkv_serve() -> dict:
     cfg = get_config(RWKV_ARCH).replace(attn_impl="kernel")
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 14)
+    params = lm_api.init_params(cfg, gen, device=DEV)
+    randomise_rwkv_leaves(params, gen)
     out = serve(15, cfg, SEED + 14,
-                {"rwkv6_scan": (rwkv6_scan, cfg.num_layers)},
-                prepare=randomise_rwkv_leaves)
+                {"rwkv6_scan": (rwkv6_scan, cfg.num_layers)}, params=params)
+    del params
     ran = out["rwkv6_scan"]["launches_by_design"]
     check(ran["mma"] == out["rwkv6_scan"]["launches"],
           f"bf16 serving launched the WKV kernels {ran}")
@@ -1983,6 +2148,208 @@ def phase_checkpoint() -> None:
     torch.cuda.empty_cache()
 
 
+def phase_new_flash_kernels() -> dict:
+    log("phase 26: hold flash_attention at head dim 256 (gemma2) and at the "
+        "cross-attention shape (non-causal, Sq != Sk) against its plain "
+        "version, then at each new arch's serving shape in bf16")
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 30)
+    for dtype in (torch.float32, torch.bfloat16):
+        for case in FA_NEW_CASES:
+            hold_flash(case, dtype, gen)
+    return {f"max_abs_err_{name}": hold_flash(case, torch.bfloat16, gen)
+            for name, case in (("gemma2", FA_GEMMA), ("cross", FA_CROSS),
+                               ("encoder", FA_ENC), ("vlm", FA_VLM))}
+
+
+def draw_lm(cfg, seed: int):
+    """Seeded random weights of ``cfg`` drawn on the card, with a log line
+    of the widths and the size."""
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    params = lm_api.init_params(cfg, gen, device=DEV)
+    torch.cuda.synchronize()
+    n = sum(t.numel() for t in _leaves(params))
+    size = sum(t.numel() * t.element_size() for t in _leaves(params))
+    layers = (f"{cfg.encoder_layers} encoder + {cfg.num_layers} decoder"
+              if cfg.is_encdec else f"{cfg.num_layers}")
+    log(f"  {cfg.name}: {layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.num_heads} heads / {cfg.num_kv_heads} KV heads of "
+        f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}: "
+        f"{n / 1e9:.3f} G parameters ({size / 2**30:.2f} GiB, "
+        f"{cfg.param_dtype}) drawn on the card in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return params
+
+
+def f32_config(arch: str, **kw):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return get_config(arch).replace(param_dtype="float32",
+                                    compute_dtype="float32",
+                                    attn_impl="kernel", **kw)
+
+
+def kernel_and_plain_prefill(params, cfg, batch, launches: int):
+    """Prefill through the flash kernel, then through the plain attention;
+    the kernel must run ``launches`` times in the first and never in the
+    second. Returns (kernel logits, cache, plain logits, cache)."""
+    fa0 = flash_attention.LAUNCHES
+    with torch.inference_mode():
+        got, got_cache = lm_api.prefill(params, cfg, batch)
+        fa1 = flash_attention.LAUNCHES
+        want, want_cache = lm_api.prefill(params, cfg.replace(attn_impl="ref"),
+                                          batch)
+    torch.cuda.synchronize()
+    check(fa1 - fa0 == launches and flash_attention.LAUNCHES == fa1,
+          f"{cfg.name} prefill: flash launched {fa1 - fa0} times (expected "
+          f"{launches}), plain prefill {flash_attention.LAUNCHES - fa1}")
+    return got, got_cache, want, want_cache
+
+
+def hold_moves(what: str, base, moved) -> None:
+    """A prefill without one feature of the config must move the logits by
+    ten times PREFILL_TOL or more: the feature is really on the path."""
+    err = (base.float() - moved.float()).abs().max().item()
+    check(err > 10 * PREFILL_TOL, f"{what} moves the logits by only {err}")
+    log(f"  {what}: logits move by {err:.3e}")
+
+
+def phase_gemma_prefill() -> dict:
+    cfg = f32_config(GEMMA_ARCH)
+    B, S = GEMMA_PREFILL_SHAPE
+    log(f"phase 27: {GEMMA_ARCH} at published widths and depth in f32, "
+        f"prefill of {B} x {S} (past the {cfg.sliding_window} window) "
+        "through the kernel against prefill through the plain attention, "
+        "then the same weights in bf16")
+    check(S > cfg.sliding_window, "the prompt must outrun the window")
+    params = draw_lm(cfg, SEED + 31)
+    tokens = torch.as_tensor(
+        lm_tokens(np.random.default_rng(SEED + 31), B, S, cfg.vocab_size),
+        device=DEV)
+    got, got_cache, want, want_cache = kernel_and_plain_prefill(
+        params, cfg, {"tokens": tokens}, cfg.num_layers)
+    hold_prefill(B, S, cfg, got, want, got_cache, want_cache)
+    with torch.inference_mode():
+        wide, _ = lm_api.prefill(params, cfg.replace(sliding_window=None),
+                                 {"tokens": tokens})
+    hold_moves("the local layers' window", got, wide)
+    del got, got_cache, wide
+    torch.cuda.empty_cache()
+    fa0 = flash_attention.LAUNCHES
+    out = hold_bf16_prefill(params, cfg, tokens, want, want_cache, ("k", "v"),
+                            {})
+    check(flash_attention.LAUNCHES - fa0 == cfg.num_layers,
+          f"bf16 prefill: flash launched {flash_attention.LAUNCHES - fa0} "
+          f"times, expected {cfg.num_layers}")
+    return out
+
+
+def phase_gemma_serve() -> dict:
+    cfg = get_config(GEMMA_ARCH).replace(attn_impl="kernel")
+    params = draw_lm(cfg, SEED + 32)
+    kernels = {"flash_attention": (flash_attention, cfg.num_layers)}
+    out = serve(28, cfg, SEED + 32, kernels, params=params)
+    B, S = GEMMA_LONG
+    long = serve(28, cfg, SEED + 33, kernels, requests=1, batch=B, prompt=S,
+                 params=params)
+    return {"launches": out["flash_attention"]["launches"]
+            + long["flash_attention"]["launches"],
+            "launches_per_request": cfg.num_layers}
+
+
+def phase_encdec_prefill() -> None:
+    cfg = f32_config(ENCDEC_ARCH)
+    B, S = PREFILL_SHAPE
+    log(f"phase 29: {ENCDEC_ARCH} at published widths and depth in f32, "
+        f"prefill of {B} x {S} tokens against {ENCDEC_PREFILL_FRAMES} random "
+        "frames through the kernel (encoder, decoder and cross-attention) "
+        "against prefill through the plain attention")
+    params = draw_lm(cfg, SEED + 34)
+    rng = np.random.default_rng(SEED + 34)
+    batch = {"tokens": torch.as_tensor(lm_tokens(rng, B, S, cfg.vocab_size),
+                                       device=DEV),
+             "frames": torch.as_tensor(rng.standard_normal(
+                 (B, ENCDEC_PREFILL_FRAMES, cfg.d_model)).astype(np.float32),
+                 device=DEV)}
+    got, got_cache, want, want_cache = kernel_and_plain_prefill(
+        params, cfg, batch, cfg.encoder_layers + 2 * cfg.num_layers)
+    check(tuple(got_cache["cross"]["k"].shape[1:3])
+          == (B, ENCDEC_PREFILL_FRAMES), "cross K/V misshapen")
+    hold_prefill(B, S, cfg, got, want, got_cache, want_cache)
+    with torch.inference_mode():
+        zeros, _ = lm_api.prefill(
+            params, cfg, {**batch, "frames": torch.zeros_like(batch["frames"])})
+    hold_moves("zero frames in place of the random ones", got, zeros)
+
+
+def phase_encdec_serve() -> dict:
+    cfg = get_config(ENCDEC_ARCH).replace(attn_impl="kernel")
+    per = cfg.encoder_layers + 2 * cfg.num_layers
+    return serve(30, cfg, SEED + 35, {"flash_attention": (flash_attention, per)},
+                 frames_len=ENCDEC_SERVE_FRAMES)["flash_attention"]
+
+
+def vl_positions(batch: int, seq: int, grid) -> torch.Tensor:
+    """(3, B, S) M-RoPE positions of an image-then-text prompt, temporal /
+    height / width: patch (r, c) of the grid at (0, r, c), then text token j
+    at max(grid) + j on every axis."""
+    rows, cols = grid
+    n = rows * cols
+    pos = torch.zeros(3, seq, dtype=torch.long)
+    pos[1, :n] = torch.arange(n) // cols
+    pos[2, :n] = torch.arange(n) % cols
+    pos[:, n:] = max(grid) + torch.arange(seq - n)
+    return pos[:, None].expand(3, batch, seq).to(DEV)
+
+
+def phase_vlm_prefill() -> None:
+    cfg = f32_config(VLM_ARCH, num_layers=VLM_PREFILL_LAYERS)
+    B, S = PREFILL_SHAPE
+    log(f"phase 31: {VLM_ARCH} at published widths cut to "
+        f"{VLM_PREFILL_LAYERS} layers, f32, prefill of {B} x {S} embeddings "
+        f"({VLM_GRID[0]} x {VLM_GRID[1]} image patches, then text) at "
+        "distinct (3, B, S) M-RoPE positions through the kernel against "
+        "prefill through the plain attention")
+    params = draw_lm(cfg, SEED + 36)
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 36)
+    pos = vl_positions(B, S, VLM_GRID)
+    check(not torch.equal(pos[0], pos[1]) and not torch.equal(pos[1], pos[2]),
+          "the three position axes must differ")
+    batch = {"embeds": torch.randn(B, S, cfg.d_model, generator=gen,
+                                   device=DEV) * cfg.d_model ** -0.5,
+             "positions": pos}
+    got, got_cache, want, want_cache = kernel_and_plain_prefill(
+        params, cfg, batch, cfg.num_layers)
+    hold_prefill(B, S, cfg, got, want, got_cache, want_cache)
+    with torch.inference_mode():
+        plain_rope, _ = lm_api.prefill(
+            params, cfg.replace(mrope_sections=None), batch)
+    hold_moves("plain RoPE over the temporal axis in place of M-RoPE", got,
+               plain_rope)
+
+
+def phase_vlm_serve() -> dict:
+    cfg = get_config(VLM_ARCH).replace(num_layers=VLM_SERVE_LAYERS,
+                                       attn_impl="kernel")
+    full = get_config(VLM_ARCH)
+    log(f"phase 32: {VLM_ARCH} cut to {cfg.num_layers} of {full.num_layers} layers, "
+        f"published widths: {param_count(cfg) / 1e9:.2f} G of "
+        f"{param_count(full) / 1e9:.2f} G parameters, "
+        f"{2 * param_count(cfg) / 2**30:.1f} GiB in bf16")
+    return serve(32, cfg, SEED + 38,
+                 {"flash_attention": (flash_attention, cfg.num_layers)}
+                 )["flash_attention"]
+
+
+def phase_new_flash_report() -> dict:
+    log("phase 33: time flash_attention at the gemma2, cross-attention, "
+        "seamless encoder and qwen2-vl serving shapes (bf16)")
+    return {"gemma2_shape": time_flash(FA_GEMMA, SEED + 39),
+            "cross_shape": time_flash(FA_CROSS, SEED + 40),
+            "encoder_shape": time_flash(FA_ENC, SEED + 42),
+            "vlm_shape": time_flash(FA_VLM, SEED + 41)}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
@@ -2020,7 +2387,7 @@ def main() -> None:
     torch.cuda.empty_cache()
     hybrid = phase_hybrid_serve()
     ssd.update(hybrid["mamba2_ssd"])
-    # the flash kernel runs on three serving paths; each was counted alone
+    # the flash kernel runs on six serving paths; each is counted alone
     flash["launches_by_path"] = {LM_ARCH: lm_launches,
                                  HYBRID_ARCH: hybrid["flash_attention"]}
     torch.cuda.empty_cache()
@@ -2041,8 +2408,6 @@ def main() -> None:
     moe = phase_moe_serve()
     gmm.update(moe["moe_gmm"])
     flash["launches_by_path"][MOE_ARCH] = moe["flash_attention"]
-    flash["launches"] = sum(v["launches"]
-                            for v in flash["launches_by_path"].values())
     torch.cuda.empty_cache()
     gmm_times, flash["moe_shape"] = phase_gmm_report()
     gmm.update(gmm_times)
@@ -2058,6 +2423,25 @@ def main() -> None:
     phase_train_step()
     train = phase_train_full()
     phase_checkpoint()
+    torch.cuda.empty_cache()
+
+    flash.update(phase_new_flash_kernels())
+    torch.cuda.empty_cache()
+    flash["bf16_prefill_gemma2"] = phase_gemma_prefill()
+    torch.cuda.empty_cache()
+    paths = flash["launches_by_path"]
+    paths[GEMMA_ARCH] = phase_gemma_serve()
+    torch.cuda.empty_cache()
+    phase_encdec_prefill()
+    torch.cuda.empty_cache()
+    paths[ENCDEC_ARCH] = phase_encdec_serve()
+    torch.cuda.empty_cache()
+    phase_vlm_prefill()
+    torch.cuda.empty_cache()
+    paths[VLM_ARCH] = phase_vlm_serve()
+    torch.cuda.empty_cache()
+    flash.update(phase_new_flash_report())
+    flash["launches"] = sum(v["launches"] for v in paths.values())
 
     card = subprocess.run(
         ["nvidia-smi", "--id=0", "--query-gpu=name,power.limit",

@@ -4,8 +4,7 @@ The port's own copy of ``repro.configs.base.ModelConfig`` (field for field,
 defaults included) and of its ``get_config``. Each ported arch has a module
 ``repro_torch/configs/<id>.py`` with ``CONFIG`` (the published widths) and
 ``reduced()`` (a tiny same-family config for CPU tests), copied from the JAX
-package. An arch whose layers the port does not have yet raises
-``NotImplementedError`` naming the ROADMAP slice that brings it.
+package. The port runs all ten archs of the JAX package's registry.
 
 ``ShardingConfig``, ``TrainConfig``, ``param_count``, ``active_param_count``
 and ``model_flops_per_token`` are copies of the JAX package's too. On one
@@ -141,22 +140,11 @@ ARCH_IDS = [
     "seamless-m4t-medium",
 ]
 
-PORTED = ("granite-20b", "qwen3-8b", "internlm2-1.8b", "zamba2-1.2b",
-          "kimi-k2-1t-a32b", "llama4-scout-17b-a16e", "rwkv6-3b")
-
-# Where each arch not yet ported waits (ROADMAP.md section 1).
-PENDING = {
-    "gemma2-2b": "the gemma2 local/global stack",
-    "qwen2-vl-72b": "the enc-dec and VLM slice (M-RoPE)",
-    "seamless-m4t-medium": "the enc-dec and VLM slice",
-}
+# Every arch of the registry; ``examples/train_100m_torch.py`` adds its own.
+PORTED = tuple(ARCH_IDS)
 
 
 def get_config(arch_id: str, reduced: bool = False) -> ModelConfig:
-    if arch_id in PENDING:
-        raise NotImplementedError(
-            f"{arch_id} is not ported yet: it waits for {PENDING[arch_id]} "
-            "(ROADMAP.md section 1)")
     if arch_id not in PORTED:
         raise ValueError(f"unknown arch {arch_id!r}; known: {ARCH_IDS}")
     mod = importlib.import_module(

@@ -19,7 +19,8 @@
 //
 // bf16 design (Hopper TMA + wgmma, hopper.cuh): one block of three
 // warpgroups per (128 query rows, batch*head); the grid's q-tile axis runs
-// longest causal tiles first. A loop over 128-key tiles takes the place of
+// longest causal tiles first. A loop over key tiles (128 keys; 64 at hd 256,
+// whose 128-key ring would not fit in shared memory) takes the place of
 // the TPU grid's sequential KV axis, from the first tile the window reaches
 // to the last tile the causal mask reaches (the counterpart of the pl.when
 // live test). One producer thread (its warpgroup otherwise idle) loads the q
@@ -28,9 +29,10 @@
 // with the tensors' own strides, so the model's strided q/k/v views are read
 // in place; a full mbarrier per K and per V stage and an empty one per stage
 // guard the ring. Rows are 128-byte swizzle atoms of 64 head-dim columns
-// (hd 128: two atoms; hd 32: one 64-byte atom). Two consumer warpgroups
-// each own 64 query rows:
-//   S = Q K^T    wgmma m64n128k16, both operands from shared memory, K-major;
+// (hd 128: two atoms; hd 256: four; hd 32: one 64-byte atom). Two consumer
+// warpgroups each own 64 query rows:
+//   S = Q K^T    wgmma m64n128k16 (m64n64k16 at hd 256), both operands from
+//                shared memory, K-major;
 //                then * hd^-0.5 in f32 (the TPU kernel scales q in f32; a
 //                bf16 q * scale would round differently at hd 128), the
 //                softcap, and the masks only on tiles that cross the
@@ -46,14 +48,17 @@
 //   O += P V     P rounded to bf16 (as the TPU kernel's p.astype(v.dtype))
 //                and fed as wgmma's register A operand, since the
 //                accumulator layout of two 8-column blocks is the A fragment
-//                of one 16-key step; V is an N-major B (transpose bit).
+//                of one 16-key step; V is an N-major B (transpose bit);
+//                m64n{hd}k16, at hd 256 the largest wgmma.
 // The output is O / max(l, 1e-30), rounded to bf16. setmaxnreg gives the
-// consumers 232 registers a thread (O: hd/2 and S: 64 f32 registers, P: 32
-// registers of bf16 pairs); the producer's warpgroup keeps 40.
+// consumers 232 registers a thread (O: hd/2 and S: BKV/2 f32 registers, P:
+// BKV/4 registers of bf16 pairs; at hd 256 128 + 32 + 16); the producer's
+// warpgroup keeps 40.
 //
 // f32 design: the products as f32 FMA on the CUDA cores (no TF32), which
 // keeps the 2e-5 agreement of the JAX tests in f32. One block of 256
-// threads per (64 query rows, batch*head). The q tile is staged once in
+// threads per (64 query rows, batch*head); at hd 256 its tiles take 222,208
+// bytes of shared memory, one block an SM. The q tile is staged once in
 // shared memory, transposed and scaled; per 64-key tile K is staged
 // transposed and V row-major. Thread (tx,ty) owns score rows 4ty..4ty+3 and
 // columns 4tx..4tx+3 (float4 shared-memory reads), keeps the running max m,
@@ -290,7 +295,10 @@ flash_fwd_kernel(const Params p) {
 
 template <int HD>
 struct Bf16Tile {
-  static constexpr int BQ = 128, BKV = 128, kStages = 2;
+  // hd 256 takes 64-key tiles: 128-key ones would need 328,704 bytes of
+  // shared memory for q and the two-stage K/V ring, above the 232,448 a
+  // block can have; 64-key ones need 197,632.
+  static constexpr int BQ = 128, BKV = HD == 256 ? 64 : 128, kStages = 2;
   static constexpr int kConsumers = 2;                     // warpgroups of 64 rows
   static constexpr int kThreads = 128 * (kConsumers + 1);  // + the producer's
   static constexpr int ATOM = HD < 64 ? HD : 64;  // head-dim columns per atom
@@ -551,6 +559,7 @@ int dispatch(const Params& p, int hd, int bf16, cudaStream_t stream) {
     case 32: return bf16 ? launch_bf16<32>(p, stream) : launch_f32<32>(p, stream);
     case 64: return bf16 ? launch_bf16<64>(p, stream) : launch_f32<64>(p, stream);
     case 128: return bf16 ? launch_bf16<128>(p, stream) : launch_f32<128>(p, stream);
+    case 256: return bf16 ? launch_bf16<256>(p, stream) : launch_f32<256>(p, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -7,7 +7,7 @@ the kernel on the current stream and counts the launch in ``LAUNCHES``. It
 takes CUDA tensors only; the plain version is ``ref.attention_reference``.
 Unlike the TPU kernel it needs no ``Sq % block_q == 0``: the kernel masks a
 ragged last tile. bf16 runs on the tensor cores (TMA-fed ``wgmma``), f32 on
-CUDA-core FMA.
+CUDA-core FMA, at head dims 32, 64, 128 and 256 (gemma2).
 """
 from __future__ import annotations
 
@@ -19,7 +19,7 @@ import torch
 
 from repro_torch.kernels import _build
 
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 128, 256)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 LAUNCHES = 0      # kernel launches since the caller last set it to 0
@@ -45,9 +45,6 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True,
     """q (B,Sq,H,hd); k/v (B,Sk,KVH,hd), all f32 or all bf16 on one CUDA
     device, head dim contiguous -> (B,Sq,H,hd) in q's dtype."""
     global LAUNCHES
-    if not (q.is_cuda and k.device == q.device and v.device == q.device):
-        raise ValueError("flash_attention_cuda needs all inputs on one CUDA "
-                         f"device, got {q.device}, {k.device}, {v.device}")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"q, k and v must share a dtype in {list(_DTYPES)}, "
                         f"got {q.dtype}, {k.dtype}, {v.dtype}")
@@ -61,6 +58,9 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True,
                          f"{tuple(k.shape)}")
     if hd not in HEAD_DIMS:
         raise ValueError(f"kernel takes head_dim in {HEAD_DIMS}, got {hd}")
+    if not (q.is_cuda and k.device == q.device and v.device == q.device):
+        raise ValueError("flash_attention_cuda needs all inputs on one CUDA "
+                         f"device, got {q.device}, {k.device}, {v.device}")
     if B * H > 65535:
         raise ValueError(f"kernel takes B*H <= 65535, got {B * H}")
     # f32: float4 loads; bf16: TMA boxes. Either way the head dim is

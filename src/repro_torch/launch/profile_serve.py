@@ -4,8 +4,10 @@ the prefill and around the decode steps of the ``Engine``.
     PYTHONPATH=src python -m repro_torch.launch.profile_serve \
         --arch internlm2-1.8b --full --batch 8 --prompt-len 2048 --max-new 32
 
-(also ``--arch zamba2-1.2b``, ``--arch rwkv6-3b``, or ``--arch
-llama4-scout-17b-a16e --num-layers 12``, the depth one card holds).
+(also ``--arch zamba2-1.2b``, ``--arch rwkv6-3b``, ``--arch gemma2-2b``,
+``--arch seamless-m4t-medium`` (random encoder frames of the prompt's
+length), or ``--arch llama4-scout-17b-a16e --num-layers 12`` and ``--arch
+qwen2-vl-72b --num-layers 24``, the depths one card holds).
 
 One request of the same shape runs first, unprofiled, to warm up; a second
 one runs unprofiled to take the host wall time of the prefill and of the
@@ -27,7 +29,7 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-from repro_torch.launch.serve import serving_config
+from repro_torch.launch.serve import request_frames, serving_config
 from repro_torch.models import api
 from repro_torch.serving.engine import Engine
 
@@ -65,7 +67,7 @@ def main(argv=None):
                     help="directory for Chrome traces of the two windows")
     ap.add_argument("--num-layers", type=int, default=None,
                     help="depth cut (widths unchanged), e.g. 12 for "
-                    "llama4-scout on one 80 GB card")
+                    "llama4-scout or 24 for qwen2-vl-72b on one 80 GB card")
     args = ap.parse_args(argv)
 
     on_cuda = torch.device(args.device).type == "cuda"
@@ -79,24 +81,31 @@ def main(argv=None):
         return rng.integers(0, cfg.vocab_size,
                             size=(args.batch, args.prompt_len), dtype=np.int32)
 
+    def frames():
+        return request_frames(cfg, rng, args.batch, args.prompt_len)
+
     def request():
         """Host wall time of the prefill and of the decode steps; the
-        engine's calls return host arrays, so the device is done."""
+        engine's calls return host arrays, so the device is done. The
+        inputs are drawn before the clock starts."""
+        tokens, enc = prompts(), frames()
         t0 = time.perf_counter()
         _, state = engine.prefill_batch(
-            prompts(), reserve=args.prompt_len + args.max_new)
+            tokens, reserve=args.prompt_len + args.max_new, frames=enc)
         t1 = time.perf_counter()
         for _ in range(args.max_new - 1):
             engine.decode_batch(state)
         return t1 - t0, time.perf_counter() - t1
 
-    engine.generate(prompts())        # warm-up: builds, allocator, handles
+    # warm-up: builds, allocator, handles
+    engine.generate(prompts(), frames=frames())
     walls = request()
     activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
                                            if on_cuda else [])
+    tokens, enc = prompts(), frames()
     with profile(activities=activities) as prof_prefill:
         _, state = engine.prefill_batch(
-            prompts(), reserve=args.prompt_len + args.max_new)
+            tokens, reserve=args.prompt_len + args.max_new, frames=enc)
     with profile(activities=activities) as prof_decode:
         for _ in range(args.max_new - 1):
             engine.decode_batch(state)

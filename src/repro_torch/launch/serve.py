@@ -7,6 +7,11 @@ unless ``--device cpu`` is given.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b --full
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch llama4-scout-17b-a16e --full --num-layers 12
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-2b --full
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch seamless-m4t-medium --full
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-vl-72b \
+        --full --num-layers 24
 
 Weights are seeded random ones at the config's widths. Prefill attention
 goes through ``ops.attention``, zamba2's Mamba2 scan through ``ops.ssd``,
@@ -16,7 +21,10 @@ their plain versions on the CPU. A zamba2 or rwkv6 prompt longer than the
 scan chunk (64 for rwkv6 and reduced zamba2, 128 for full zamba2) must be a
 multiple of it. ``--num-layers`` cuts the depth and keeps every width:
 llama4-scout's published 48 layers are about 199 GB in bf16, more than one
-80 GB card holds, and 12 layers (50.3 GiB) fit.
+80 GB card holds, and 12 layers (50.3 GiB) fit; qwen2-vl-72b's 80 layers
+are about 144 GB, and 24 (47 GB with the embeddings) fit. An enc-dec
+model's encoder reads seeded random frames of the prompt's length (the
+speech frontend is a stub, as in the JAX package).
 """
 from __future__ import annotations
 
@@ -42,6 +50,15 @@ def serving_config(arch: str, full: bool, num_layers=None):
     return cfg
 
 
+def request_frames(cfg, rng, batch: int, length: int):
+    """Seeded random encoder frames (B, length, D) for an enc-dec model, else
+    None. Random, not the engine's default zeros: zero frames give zero
+    cross K/V, and the cross-attention would compute nothing."""
+    if not cfg.is_encdec:
+        return None
+    return rng.standard_normal((batch, length, cfg.d_model)).astype(np.float32)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
@@ -55,7 +72,7 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--num-layers", type=int, default=None,
                     help="depth cut (widths unchanged), e.g. 12 for "
-                    "llama4-scout on one 80 GB card")
+                    "llama4-scout or 24 for qwen2-vl-72b on one 80 GB card")
     args = ap.parse_args(argv)
 
     cfg = serving_config(args.arch, args.full, args.num_layers)
@@ -68,7 +85,8 @@ def main(argv=None):
         prompts = rng.integers(0, cfg.vocab_size,
                                size=(args.batch, args.prompt_len),
                                dtype=np.int32)
-        out = engine.generate(prompts)
+        out = engine.generate(prompts, frames=request_frames(
+            cfg, rng, args.batch, args.prompt_len))
         print(f"round {r}: in {prompts.shape} -> out {out.shape}, "
               f"sample tail: {out[0, -8:].tolist()}")
     print(f"steady-state throughput: {engine.throughput():.1f} tok/s "

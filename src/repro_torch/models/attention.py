@@ -1,6 +1,5 @@
-"""Attention: GQA projections, the chunked plain attention and the KV cache.
-The port of ``repro/models/attention.py`` (self-attention; cross-attention
-waits for the enc-dec slice).
+"""Attention: GQA projections, the chunked plain attention, self- and
+cross-attention and the KV cache. The port of ``repro/models/attention.py``.
 
 ``mha_reference`` is the plain blockwise online-softmax attention: it never
 materialises the full (Sq, Sk) score matrix beyond one chunk pair, skips
@@ -16,7 +15,9 @@ launches the CUDA kernel for CUDA tensors and takes its plain version for
 CPU tensors. Decode (one query position against the cache, with
 ``valid_len``) stays on ``mha_reference``'s Sq <= 8 path, as in the JAX
 package: it is a GEMV-like pass over the cache where a kernel of this kind
-buys nothing.
+buys nothing. Cross-attention (non-causal, Sq != Sk) follows the same rule:
+the kernel in prefill and the full-sequence forward, ``mha_reference`` in
+decode.
 """
 from __future__ import annotations
 
@@ -30,8 +31,9 @@ from repro_torch.models.layers import apply_rope, dtype_of, rmsnorm_head
 NEG_INF = -1e30
 
 
-def attention_params(mk, cfg: ModelConfig, stacked=()):
-    """Projection weights for one self-attention module."""
+def attention_params(mk, cfg: ModelConfig, stacked=(), cross: bool = False):
+    """Projection weights for one attention module (self or cross; a cross
+    module has no qk-norm)."""
     d, hd = cfg.d_model, cfg.resolved_head_dim
     nh, nkv = cfg.num_heads, cfg.num_kv_heads
     p = {
@@ -40,7 +42,7 @@ def attention_params(mk, cfg: ModelConfig, stacked=()):
         "wv": mk.param(stacked + (d, nkv, hd), fan_in=d),
         "wo": mk.param(stacked + (nh, hd, d), fan_in=nh * hd),
     }
-    if cfg.qk_norm:
+    if cfg.qk_norm and not cross:
         p["q_norm"] = mk.param(stacked + (hd,), init="ones")
         p["k_norm"] = mk.param(stacked + (hd,), init="ones")
     return p
@@ -209,6 +211,21 @@ def self_attention(params, x, cfg: ModelConfig, *, cos, sin, causal=True,
                window=window, q_offset=cur_len,
                valid_len=start + x.shape[1])
     return output_proj(params, o, cfg), cache
+
+
+def cross_attention(params, x, enc_kv, cfg: ModelConfig):
+    """Decoder cross-attention against the encoder's precomputed
+    ``enc_kv = {k, v}`` of (B, S_enc, KVH, hd): no rope, no mask."""
+    q = _proj(x, params["wq"].to(dtype_of(cfg.compute_dtype)))
+    o = attend(q, enc_kv["k"], enc_kv["v"], cfg=cfg, causal=False)
+    return output_proj(params, o, cfg)
+
+
+def encode_cross_kv(params, enc_out, cfg: ModelConfig):
+    """One decoder layer's cross K/V from the encoder output (B, S_enc, D)."""
+    cd = dtype_of(cfg.compute_dtype)
+    return {"k": _proj(enc_out, params["wk"].to(cd)),
+            "v": _proj(enc_out, params["wv"].to(cd))}
 
 
 def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, layers: int,

@@ -117,13 +117,22 @@ def rope_freqs(head_dim, theta):
 
 
 def rope_cos_sin(positions, head_dim, theta, mrope_sections=None):
-    """positions (B, S) integers -> cos, sin (B, S, head_dim/2), float32."""
-    if mrope_sections is not None:
-        raise NotImplementedError(
-            "M-RoPE waits for the enc-dec and VLM slice (ROADMAP.md section 1)")
+    """cos, sin (B, S, head_dim/2), float32.
+
+    positions: (B, S) integers, or (3, B, S) for M-RoPE (temporal, height,
+    width): frequency band i of ``mrope_sections`` turns with axis i."""
     inv = torch.as_tensor(rope_freqs(head_dim, theta), dtype=torch.float32,
                           device=positions.device)
-    ang = positions[..., None].float() * inv
+    if mrope_sections is None:
+        if positions.dim() == 3:
+            positions = positions[0]
+        ang = positions[..., None].float() * inv
+    else:
+        assert positions.dim() == 3, "M-RoPE needs (3,B,S) positions"
+        assert sum(mrope_sections) == head_dim // 2, (mrope_sections, head_dim)
+        bands = inv.split(list(mrope_sections))
+        ang = torch.cat([positions[i][..., None].float() * band
+                         for i, band in enumerate(bands)], dim=-1)
     return torch.cos(ang), torch.sin(ang)
 
 

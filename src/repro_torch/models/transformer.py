@@ -1,5 +1,7 @@
 """Decoder-only transformer stacks: the port of the uniform dense stack, the
-zamba2 hybrid stack and the RWKV6 stack of ``repro/models/transformer.py``.
+gemma2 local/global stack, the zamba2 hybrid stack and the RWKV6 stack of
+``repro/models/transformer.py``, and the dense block that the enc-dec stacks
+of ``models/encdec.py`` share.
 
 The JAX package scans stacked (L, ...) parameters with ``lax.scan``; the port
 keeps the same stacked layout and loops over layers in Python. The same
@@ -18,8 +20,11 @@ counterpart of ``dots_with_no_batch_dims_saveable``), "none" saves
 everything.
 
 The uniform stack takes the MoE FFN for the moe family, and every pass sums
-the layers' load-balance losses. The gemma2 local/global stack and the
-enc-dec stacks wait for their slices (ROADMAP.md section 1).
+the layers' load-balance losses. gemma2's stack runs periods of
+``local_global_period`` layers, stacked (L/per, per, ...): every layer of a
+period but the last attends within ``sliding_window``, the last globally;
+its blocks add the post-norms (``post_norm``). Its KV cache stays stacked
+over the L layers, layer g*per + i at index g*per + i.
 """
 from __future__ import annotations
 
@@ -37,29 +42,22 @@ from repro_torch.models.mlp import mlp, mlp_params
 from repro_torch.models.moe import moe_ffn, moe_params
 
 
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise NotImplementedError for a config whose layers are not ported."""
-    pending = [
-        (cfg.is_encdec, "enc-dec stack", "the enc-dec and VLM slice"),
-        (cfg.mrope_sections is not None, "M-RoPE", "the enc-dec and VLM slice"),
-        (bool(cfg.local_global_period) or cfg.post_norm,
-         "gemma2 local/global stack", "the gemma2 stack"),
-    ]
-    for hit, what, where in pending:
-        if hit:
-            raise NotImplementedError(
-                f"{cfg.name}: the {what} is not ported yet; it waits for "
-                f"{where} (ROADMAP.md section 1)")
-
-
-def dense_block_params(mk, cfg: ModelConfig, stacked=(), moe: bool = False):
-    return {
+def dense_block_params(mk, cfg: ModelConfig, stacked=(), moe: bool = False,
+                       cross: bool = False):
+    p = {
         "ln1": rmsnorm_params(mk, cfg.d_model, stacked),
         "attn": attn.attention_params(mk, cfg, stacked),
         "ln2": rmsnorm_params(mk, cfg.d_model, stacked),
         "ffn": (moe_params(mk, cfg, stacked) if moe
                 else mlp_params(mk, cfg, stacked)),
     }
+    if cross:
+        p["ln_cross"] = rmsnorm_params(mk, cfg.d_model, stacked)
+        p["cross"] = attn.attention_params(mk, cfg, stacked, cross=True)
+    if cfg.post_norm:
+        p["ln1_post"] = rmsnorm_params(mk, cfg.d_model, stacked)
+        p["ln2_post"] = rmsnorm_params(mk, cfg.d_model, stacked)
+    return p
 
 
 def rwkv_block_params(mk, cfg: ModelConfig, stacked=()):
@@ -79,7 +77,6 @@ def mamba_block_params(mk, cfg: ModelConfig, stacked=()):
 
 
 def stack_params(mk, cfg: ModelConfig):
-    check_supported(cfg)
     if cfg.rwkv:
         return {"rwkv": rwkv_block_params(mk, cfg, stacked=(cfg.num_layers,))}
     if cfg.family == "hybrid":
@@ -90,16 +87,26 @@ def stack_params(mk, cfg: ModelConfig):
         if tail:
             p["mamba_tail"] = mamba_block_params(mk, cfg, stacked=(tail,))
         return p
+    if cfg.local_global_period:
+        per = cfg.local_global_period
+        assert cfg.num_layers % per == 0, (cfg.num_layers, per)
+        return {"lg": dense_block_params(
+            mk, cfg, stacked=(cfg.num_layers // per, per), moe=cfg.is_moe)}
     return {"uniform": dense_block_params(mk, cfg, stacked=(cfg.num_layers,),
                                           moe=cfg.is_moe)}
 
 
+def _maybe_post(p, name, y, cfg):
+    return rmsnorm(p[name], y, cfg.norm_eps) if cfg.post_norm else y
+
+
 def apply_dense_block(p, h, cfg: ModelConfig, *, cos, sin, window=None,
-                      causal=True, cache=None, cur_len=None,
+                      causal=True, cache=None, cur_len=None, enc_kv=None,
                       collect_cache=False):
     """Returns (h, cache, aux): the layer's fresh {k, v} when collecting,
     the updated layer cache when decoding, else None; aux is the MoE
-    load-balance loss (None for a dense FFN)."""
+    load-balance loss (None for a dense FFN). ``enc_kv``: this layer's
+    cross K/V, for an enc-dec decoder block."""
     a_in = rmsnorm(p["ln1"], h, cfg.norm_eps)
     if collect_cache:
         q, k, v = attn.project_qkv(p["attn"], a_in, cfg, cos, sin)
@@ -110,14 +117,17 @@ def apply_dense_block(p, h, cfg: ModelConfig, *, cos, sin, window=None,
         a_out, new_cache = attn.self_attention(
             p["attn"], a_in, cfg, cos=cos, sin=sin, causal=causal,
             window=window, cache=cache, cur_len=cur_len)
-    h = h + a_out
+    h = h + _maybe_post(p, "ln1_post", a_out, cfg)
+    if enc_kv is not None:
+        c_in = rmsnorm(p["ln_cross"], h, cfg.norm_eps)
+        h = h + attn.cross_attention(p["cross"], c_in, enc_kv, cfg)
     m_in = rmsnorm(p["ln2"], h, cfg.norm_eps)
     aux = None
     if "router" in p["ffn"]:
         m_out, aux = moe_ffn(p["ffn"], m_in, cfg)
     else:
         m_out = mlp(p["ffn"], m_in, cfg)
-    return h + m_out, new_cache, aux
+    return h + _maybe_post(p, "ln2_post", m_out, cfg), new_cache, aux
 
 
 def apply_rwkv_block(p, h, cfg: ModelConfig, cache=None):
@@ -189,7 +199,6 @@ def run_stack(params, h, cfg: ModelConfig, *, cos, sin, cache=None,
     collect_cache: build the cache from this full pass (prefill), with room
     for ``reserve`` positions (default: the sequence length; zeros past it).
     cache: a stacked cache to decode against; it is written in place."""
-    check_supported(cfg)
     if collect_cache:
         B, S = h.shape[:2]
         cache = init_cache(cfg, B, max(reserve or S, S), device=h.device)
@@ -199,25 +208,70 @@ def run_stack(params, h, cfg: ModelConfig, *, cos, sin, cache=None,
     kw = dict(cos=cos, sin=sin, cur_len=cur_len, collect_cache=collect_cache)
     if cfg.family == "hybrid":
         return _run_zamba_stack(params, h, cfg, cache, **kw), cache, aux
-    layer = _ckpt(functools.partial(_attention_layer, cfg=cfg, kv=cache, **kw),
-                  cfg, cache)
-    for i, p in enumerate(_layers(params["uniform"])):
-        h, a = layer(p, h, i)
-        if a is not None:
-            aux = aux + a
+    if cfg.local_global_period:
+        h, aux = _run_local_global_stack(params["lg"], h, cfg, cache, aux,
+                                         **kw)
+    else:
+        h, aux = run_dense_layers(params["uniform"], h, cfg, cache, aux, **kw)
     return h, cache, aux
 
 
-def _attention_layer(p, h, i, *, cfg, kv, cos, sin, cur_len, collect_cache):
+def run_dense_layers(params, h, cfg, kv, aux, *, enc_kv=None, **kw):
+    """The dense blocks stacked (L, ...) in ``params``, layer i against
+    layer i of the stacked KV cache ``kv`` and, for an enc-dec decoder, of
+    the stacked cross K/V ``enc_kv``. Returns (h, aux plus the layers' MoE
+    load-balance losses)."""
+    layer = _ckpt(functools.partial(_attention_layer, cfg=cfg, kv=kv,
+                                    enc_kv=enc_kv, **kw), cfg, kv)
+    for i, p in enumerate(_layers(params)):
+        h, a = layer(p, h, i)
+        if a is not None:
+            aux = aux + a
+    return h, aux
+
+
+def _run_local_global_stack(params, h, cfg, kv, aux, **kw):
+    """gemma2: periods of ``per`` blocks, params stacked (L/per, per, ...).
+    Every block of a period attends within ``sliding_window`` but the last,
+    which is global; block i of period g is layer g*per + i of the cache.
+    Returns (h, aux plus the layers' MoE load-balance losses)."""
+    per = cfg.local_global_period
+    windows = [cfg.sliding_window] * (per - 1) + [None]
+    layers = [functools.partial(_attention_layer, cfg=cfg, kv=kv,
+                                window=w, **kw) for w in windows]
+
+    def period(group_p, h, g):
+        a_sum = None
+        for i, p in enumerate(_layers(group_p)):
+            h, a = layers[i](p, h, g * per + i)
+            if a is not None:
+                a_sum = a if a_sum is None else a_sum + a
+        return h, a_sum
+
+    period = _ckpt(period, cfg, kv)
+    for g, group_p in enumerate(_layers(params)):
+        h, a = period(group_p, h, g)
+        if a is not None:
+            aux = aux + a
+    return h, aux
+
+
+def _attention_layer(p, h, i, *, cfg, kv, cos, sin, cur_len, collect_cache,
+                     window=None, enc_kv=None):
     """One dense block against layer ``i`` of the stacked KV cache ``kv``
-    (None: no cache). Prefill writes the fresh K/V at positions [0, S);
+    (None: no cache) and of the stacked cross K/V ``enc_kv`` (None: no
+    cross-attention). Prefill writes the fresh K/V at positions [0, S);
     decode writes the new position in place. Returns (h, the layer's MoE
     load-balance loss or None)."""
     layer_kv = None
     if kv is not None and not collect_cache:
         layer_kv = {"k": kv["k"][i], "v": kv["v"][i]}
+    layer_enc = None
+    if enc_kv is not None:
+        layer_enc = {"k": enc_kv["k"][i], "v": enc_kv["v"][i]}
     h, new_kv, aux = apply_dense_block(p, h, cfg, cos=cos, sin=sin,
-                                       cache=layer_kv, cur_len=cur_len,
+                                       window=window, cache=layer_kv,
+                                       cur_len=cur_len, enc_kv=layer_enc,
                                        collect_cache=collect_cache)
     if collect_cache:
         S = h.shape[1]
@@ -310,8 +364,13 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda"):
 
 def positions_for(cfg: ModelConfig, batch: int, seq: int, offset=0,
                   device="cuda"):
+    """(B, S) positions offset..offset+S-1; (3, B, S), the same on every
+    axis, for M-RoPE."""
     pos = torch.arange(seq, device=device)[None, :] + offset
-    return pos.expand(batch, seq)
+    pos = pos.expand(batch, seq)
+    if cfg.mrope_sections is not None:
+        pos = pos[None].expand(3, batch, seq)
+    return pos
 
 
 def rope_tables(cfg: ModelConfig, positions):

@@ -41,11 +41,18 @@ class GenState:
                                   # (layers, batch, ...): dense {k, v}
                                   # (layers, B, reserve, KVH, hd); zamba2
                                   # {mamba: {conv, ssm}, attn: {k, v}};
-                                  # rwkv6 {tm_shift, cm_shift, state}
+                                  # rwkv6 {tm_shift, cm_shift, state};
+                                  # enc-dec {self: {k, v}, cross: {k, v}}
     cur: torch.Tensor             # (B, 1) last emitted token per row
     pos: int                      # tokens already written to the cache
     reserve: int                  # cache capacity (prompt + generation)
     padded_b: int                 # current batch dimension
+
+
+def _gather(tree, idx):
+    """Rows ``idx`` of axis 1 of every leaf of a nested dict."""
+    return {k: _gather(v, idx) if isinstance(v, dict) else v.index_select(1, idx)
+            for k, v in tree.items()}
 
 
 class Engine:
@@ -63,14 +70,21 @@ class Engine:
 
     @torch.inference_mode()
     def prefill_batch(self, tokens: np.ndarray, *,
-                      reserve: Optional[int] = None) -> tuple:
+                      reserve: Optional[int] = None,
+                      frames: Optional[np.ndarray] = None) -> tuple:
         """Prefill one equal-length micro-batch and reserve cache room for
         generation. tokens (B, S) -> ((B,) first generated tokens, GenState
-        positioned for decode)."""
+        positioned for decode). An enc-dec model's encoder reads ``frames``
+        (B, S_enc, D); without them it reads zeros of the prompt's length,
+        as the JAX engine does."""
         B, S = tokens.shape
         reserve = reserve if reserve is not None else S + self.max_new
         batch = {"tokens": torch.as_tensor(np.asarray(tokens, np.int64),
                                            device=self.device)}
+        if self.cfg.is_encdec:
+            if frames is None:
+                frames = np.zeros((B, S, self.cfg.d_model), np.float32)
+            batch["frames"] = torch.as_tensor(frames, device=self.device)
         logits, cache = api.prefill(self.params, self.cfg, batch,
                                     reserve=reserve)
         self.stats["prefill_calls"] += 1
@@ -101,23 +115,21 @@ class Engine:
         batch indices). Every cache leaf is (layers, batch, ...), so the
         gather is along axis 1, over the whole nested tree."""
         idx = torch.as_tensor(list(rows), dtype=torch.long, device=self.device)
-
-        def gather(tree):
-            return {k: gather(v) if isinstance(v, dict) else v.index_select(1, idx)
-                    for k, v in tree.items()}
-        cache = gather(state.cache)
+        cache = _gather(state.cache, idx)
         return GenState(cache=cache, cur=state.cur[idx], pos=state.pos,
                         reserve=state.reserve, padded_b=len(rows))
 
     # -- run-to-completion API ----------------------------------------------
 
-    def generate(self, tokens: np.ndarray, *,
-                 max_new: Optional[int] = None) -> np.ndarray:
-        """tokens (B, S) equal-length prompts -> (B, S + max_new)."""
+    def generate(self, tokens: np.ndarray, *, max_new: Optional[int] = None,
+                 frames: Optional[np.ndarray] = None) -> np.ndarray:
+        """tokens (B, S) equal-length prompts -> (B, S + max_new); ``frames``
+        as in ``prefill_batch``."""
         t_start = time.perf_counter()
         max_new = max_new or self.max_new
         B, S = tokens.shape
-        first, state = self.prefill_batch(tokens, reserve=S + max_new)
+        first, state = self.prefill_batch(tokens, reserve=S + max_new,
+                                          frames=frames)
         out = [first]
         for _ in range(max_new - 1):
             out.append(self.decode_batch(state))

@@ -38,19 +38,19 @@ def _rebuild(tree, children):
     return type(tree)(children)
 
 
+def _flatten(tree, path, out) -> None:
+    kids = _children(tree)
+    if kids is None:
+        out.append(("/".join(path), tree))
+        return
+    for key, child in kids:
+        _flatten(child, path + [key], out)
+
+
 def tree_flatten_with_paths(tree):
     """[(path_string, leaf)] for every leaf, '/'-joined keys."""
     out = []
-
-    def walk(t, path):
-        kids = _children(t)
-        if kids is None:
-            out.append(("/".join(path), t))
-            return
-        for key, child in kids:
-            walk(child, path + [key])
-
-    walk(tree, [])
+    _flatten(tree, [], out)
     return out
 
 

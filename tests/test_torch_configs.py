@@ -1,14 +1,20 @@
 """The port's copies of the language-model configs equal the JAX package's
-field for field, and its registry refuses the archs it does not run yet."""
+field for field, and its registry takes every arch of the JAX package's."""
 import dataclasses
 
 import pytest
 
 from repro.configs import base as jax_base
 from repro_torch.configs import base
+from repro_torch.models import api
+from repro_torch.models.layers import ShapeMaker, dtype_of
 
 PORTED = ["internlm2-1.8b", "qwen3-8b", "granite-20b", "zamba2-1.2b",
-          "kimi-k2-1t-a32b", "llama4-scout-17b-a16e", "rwkv6-3b"]
+          "kimi-k2-1t-a32b", "llama4-scout-17b-a16e", "rwkv6-3b",
+          "gemma2-2b", "qwen2-vl-72b", "seamless-m4t-medium"]
+# The archs the registry refused until the gemma2, enc-dec and M-RoPE layers
+# were ported.
+FORMERLY_REFUSED = ["gemma2-2b", "qwen2-vl-72b", "seamless-m4t-medium"]
 
 
 @pytest.mark.parametrize("reduced", [False, True])
@@ -28,11 +34,27 @@ def test_model_config_fields_match():
     assert base.ARCH_IDS == jax_base.ARCH_IDS
 
 
-@pytest.mark.parametrize("arch", [a for a in jax_base.ARCH_IDS
-                                  if a not in PORTED])
+@pytest.mark.parametrize("arch", FORMERLY_REFUSED)
 def test_unported_arch_names_its_slice(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        base.get_config(arch)
+    """Every arch of the registry is ported: the three the registry refused
+    until the gemma2, enc-dec and M-RoPE layers were ported resolve, and
+    their parameter trees at the published widths have the JAX package's
+    names, shapes and dtypes (traced, nothing allocated)."""
+    import jax
+    from repro.models import api as jax_api
+
+    assert set(PORTED) == set(jax_base.ARCH_IDS) == set(base.PORTED)
+    cfg = base.get_config(arch)
+    got = api.model_params(ShapeMaker(dtype_of(cfg.param_dtype)), cfg)
+    want = jax_api.abstract_params(jax_base.get_config(arch))
+
+    def walk(g, w):
+        if isinstance(g, dict):
+            assert set(g) == set(w)
+            return all(walk(g[k], w[k]) for k in g)
+        return g[0] == w.shape and str(g[1]).endswith(str(w.dtype))
+
+    assert walk(got, want)
 
 
 def test_unknown_arch():

@@ -32,6 +32,20 @@ RAGGED = [
     (3, 200, 200, 8, 1, 128, True, 50, None, 0),
     (1, 65, 130, 2, 1, 32, False, 33, 20.0, 0),
 ]
+# Head dim 256 (gemma2-2b: GQA 8/4, window, softcap 50) off the tiles: a
+# window that starts inside a KV tile, a ragged last tile, a decode-like
+# offset, and a cap of 2, which moves these scores by O(1). Then the
+# cross-attention shape of an enc-dec decoder at hd 64: non-causal, Sq != Sk.
+HD256 = [
+    (2, 300, 300, 8, 4, 256, True, 100, 50.0, 0),
+    (1, 256, 256, 8, 4, 256, True, None, None, 0),
+    (1, 37, 333, 8, 4, 256, True, None, None, 296),
+    (1, 200, 200, 8, 4, 256, True, 70, 2.0, 0),
+]
+CROSS = [
+    (2, 300, 200, 16, 16, 64, False, None, None, 0),
+    (2, 128, 384, 4, 4, 64, False, None, None, 0),
+]
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}   # tests/test_kernels.py
 
@@ -82,6 +96,42 @@ def test_plain_version_matches_jax_kernel(case, dtype):
         rtol=tol, atol=tol)
 
 
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("case", [HD256[1], (1, 128, 256, 8, 4, 256, True, 64,
+                                            50.0, 128), CROSS[1]], ids=str)
+def test_plain_version_matches_jax_kernel_at_new_shapes(case, dtype):
+    """Head dim 256 with a window and gemma2's softcap, and the non-causal
+    Sq != Sk cross shape, against the Pallas kernel in interpret mode (the
+    shapes it takes: Sq and Sk multiples of its 128 blocks)."""
+    import jax.numpy as jnp
+    from repro.kernels.flash_attention.flash_attention import \
+        flash_attention as jax_flash
+    arrays = _inputs(*case[:6], seed=2)
+    jq, jk, jv = (jnp.asarray(a, jnp.dtype(dtype)) for a in arrays)
+    tq, tk, tv = (torch.from_numpy(a).to(DTYPES[dtype]) for a in arrays)
+    want = jax_flash(jq, jk, jv, **_kw(case))
+    got = ops.attention(tq, tk, tv, **_kw(case))
+    tol = TOL[DTYPES[dtype]]
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32),
+                               rtol=tol, atol=tol)
+
+
+def test_binding_takes_head_dim_256_only_beside_32_64_128():
+    """The binding checks the head dim before the device: on CPU tensors hd
+    256 passes it (and is refused for the device), hd 96 or 512 is refused
+    for the head dim."""
+    assert flash_attention.HEAD_DIMS == (32, 64, 128, 256)
+    for hd in (32, 64, 128, 256):
+        q = torch.zeros(1, 8, 2, hd)
+        with pytest.raises(ValueError, match="CUDA"):
+            flash_attention.flash_attention_cuda(q, q, q)
+    for hd in (96, 112, 512):
+        q = torch.zeros(1, 8, 2, hd)
+        with pytest.raises(ValueError, match="head_dim"):
+            flash_attention.flash_attention_cuda(q, q, q)
+
+
 def test_dispatch_on_cpu():
     q, k, v = (torch.from_numpy(a) for a in _inputs(1, 64, 64, 2, 1, 32))
     with pytest.raises(ValueError, match="CUDA"):
@@ -96,7 +146,8 @@ def test_dispatch_on_cpu():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", list(DTYPES))
-@pytest.mark.parametrize("case", CASES + RAGGED + [SERVING], ids=str)
+@pytest.mark.parametrize("case", CASES + RAGGED + [SERVING] + HD256 + CROSS,
+                         ids=str)
 def test_kernel_matches_plain_version(cuda, case, dtype):
     q, k, v = (torch.from_numpy(a).to(cuda, DTYPES[dtype])
                for a in _inputs(*case[:6]))
@@ -152,6 +203,9 @@ BF16_KERNEL = [
     (1, 256, 256, 4, 2, 128, True, None, 2.0, 0),
     (1, 300, 300, 8, 8, 64, True, 100, 2.0, 0),
     (2, 200, 200, 4, 4, 32, True, None, 3.0, 0),
+    (1, 1000, 1000, 8, 4, 256, True, None, None, 0),
+    (2, 2048, 2048, 8, 4, 256, True, 1000, 50.0, 0),
+    (2, 300, 200, 16, 16, 64, False, None, None, 0),
 ]
 
 
@@ -171,7 +225,7 @@ def test_bf16_kernel_matches_plain_version(cuda, case):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("hd", [32, 64, 128, 256])
 def test_bf16_kernel_reads_packed_strided_inputs(cuda, hd):
     """bf16 q, k, v as head slices of one packed (B,S,H+2KVH,hd) projection,
     read in place through the tensor maps."""

@@ -182,11 +182,22 @@ def test_lm_params_from_numpy_checks_the_layout():
 
 
 def test_unported_layers_raise():
-    cfg = get_config("internlm2-1.8b", reduced=True)
+    """A layer the port has not got raises, naming the ROADMAP item that
+    brings it: expert-parallel MoE (item 8). The gemma2 post-norms and
+    local/global stack and M-RoPE, which raised here until they were
+    ported, build and run."""
+    cfg = get_config("internlm2-1.8b", reduced=True).replace(
+        param_dtype="float32", compute_dtype="float32")
+    tokens = {"tokens": torch.from_numpy(_tokens(cfg, 8))}
     for kw in (dict(post_norm=True), dict(local_global_period=2),
                dict(mrope_sections=(4, 6, 6))):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            api.init_params(cfg.replace(**kw), device="cpu")
+        c = cfg.replace(**kw)
+        logits, _ = api.forward(api.init_params(c, device="cpu"), c, tokens)
+        assert bool(torch.isfinite(logits).all())
+    moe = get_config("llama4-scout-17b-a16e", reduced=True).replace(
+        moe_impl="ep_a2a")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        api.forward(api.init_params(moe, device="cpu"), moe, tokens)
 
 
 @pytest.mark.parametrize("shape,dtype,budget", [
