@@ -210,6 +210,38 @@ Phases:
      gemma2, cross-attention and qwen2-vl serving shapes (SDPA has no logit
      softcap: at gemma2's shape its time without cap and window is a note).
 
+ 34. Hold the flash-attention kernel against its plain version at head dim
+     112 (kimi-k2; the binding zero-pads q, k and v to the kernel's 128 and
+     scales by 112 ** -0.5), f32 and bf16: the JAX kernel tests' six cases,
+     off the tiles (Sq = Sk = 1000; Sq = 37), a window with a softcap of 2
+     and a q_offset; then kimi-k2's serving shape (8, 2048, 64 heads, 8 KV
+     heads, hd 112) in bf16, timed against the plain version and SDPA
+     beside the true head dim's bound.
+ 35. kimi-k2-1t-a32b at published widths (d_model 7168, 64 / 8 heads of
+     112, 384 experts top-8 of d_ff 2048, vocab 163840) cut to 1 layer: its
+     attention sub-layer in f32 on its own weights, kernel against plain on
+     2 x 1024 tokens; gmm against ``gmm_reference`` at its four product
+     shapes with E = 384 in bf16 (decode also with 64 of 384 experts live),
+     timed at the prefill and decode shapes; then 3 requests of 8 x 2048 +
+     32 in bf16 through ``Engine``: 1 flash and 96 gmm launches a request.
+ 36. The multi-process fabric, in a fresh interpreter (``--fabric``) that
+     never initialises CUDA, so that its forked children can: a ``proc``
+     broker (round trip timed), one inference shard (``start_inference_
+     shard``) serving internlm2-1.8b at published widths in bf16 on the
+     card behind ``InferenceClient`` (3 requests of 8 x 2048 + 32; its
+     engine factory writes its flash launch count, 24 a request, to a file
+     the script reads), and a one-worker ``ProcessPoolTaskServer`` whose
+     method re-scores the 10,000-molecule space at full width on the card
+     (237 ``mpnn_mp`` launches a re-score). Back in this process: the
+     shard's tokens against an in-process prefill and decode on the same
+     seeded weights, up to the first near-tie (top-2 logits within 1e-3),
+     and the worker's scores within 1e-6 of the in-process re-score's.
+ 37. synapp over the ``proc`` transport in the same interpreter: 4 pool
+     workers, 2 Value Server shards and one scorer shard ranking 3
+     candidates a task, then without the scorer (the paper's envelope):
+     per-task dispatch overhead ((N x makespan - summed task runtimes) / T)
+     and result latency.
+
 The kernels are built first, one ``nvcc`` per source, all in parallel;
 ``ptxas`` reports each kernel's registers and spills. Every time (kernel,
 plain version, PyTorch call) is the median over CUDA events of ten calls an
@@ -266,8 +298,11 @@ from repro_torch.kernels.rwkv6_scan.ref import wkv6_chunked  # noqa: E402
 from repro_torch.launch import steps as train_steps  # noqa: E402
 from repro_torch.launch.train import train as train_lm  # noqa: E402
 from repro_torch.models import api as lm_api  # noqa: E402
+from repro_torch.models import attention as lm_attn  # noqa: E402
 from repro_torch.models import moe as lm_moe  # noqa: E402
+from repro_torch.models import transformer as lm_transformer  # noqa: E402
 from repro_torch.models.convert import params_to_numpy  # noqa: E402
+from repro_torch.models.layers import InitMaker  # noqa: E402
 from repro_torch.models.mpnn import mpnn_loss, param_shapes  # noqa: E402
 from repro_torch.serving.engine import Engine  # noqa: E402
 from repro_torch.utils.trees import (tree_flatten_with_paths,  # noqa: E402
@@ -510,6 +545,43 @@ FA_ENC = (SERVE_BATCH, ENCDEC_SERVE_FRAMES, ENCDEC_SERVE_FRAMES, 16, 16, 64,
           False, None, None, 0)
 FA_VLM = (SERVE_BATCH, SERVE_PROMPT, SERVE_PROMPT, 64, 8, 128, True, None,
           None, 0)
+
+KIMI_ARCH = "kimi-k2-1t-a32b"
+# One layer's 384 experts are 33.8 GB in bf16 (67.6 in f32): kimi-k2 runs as
+# a one-layer cut, its weights drawn in bf16 on the card; its f32 hold is of
+# layer 0's attention sub-layer alone, on its own weights.
+KIMI_LAYERS = 1
+KIMI_ATTN_SHAPE = (2, 1024)
+KIMI_ATTN_TOL = 1e-4
+# Head dim 112 (kimi-k2), which the binding zero-pads to the kernel's 128:
+# the JAX kernel tests' six cases at hd 112, off the 128-row and 128-key
+# tiles (Sq = Sk = 1000; Sq = 37), a window with a softcap of 2, a q_offset
+# with Sk = 2 Sq, then kimi-k2's serving shape.
+FA_HD112_CASES = [case[:5] + (112,) + case[6:] for case in FA_CASES] + [
+    (2, 1000, 1000, 16, 8, 112, True, None, None, 0),
+    (8, 37, 37, 64, 8, 112, True, None, None, 0),
+    (2, 1000, 1000, 16, 8, 112, True, 256, 2.0, 0),
+    (2, 512, 1024, 16, 8, 112, True, None, None, 128),
+]
+FA_KIMI = (SERVE_BATCH, SERVE_PROMPT, SERVE_PROMPT, 64, 8, 112, True, None,
+           None, 0)
+# A kimi-k2 decode step routes 8 tokens top-8: at most 64 of 384 experts live.
+KIMI_DECODE_LIVE = 64
+
+# Phases 36-37 run in a fresh interpreter (``--fabric``) that never touches
+# CUDA: torch cannot initialise CUDA in a child forked from a process that
+# has, and the fabric forks its broker, shard and workers (start method
+# ``fork``, as in the JAX package). Each forked child initialises the card.
+FABRIC_SEED = SEED + 47
+FABRIC_TIMEOUT = 480          # seconds for the whole fabric interpreter
+FABRIC_GET_TIMEOUT = 240      # seconds for one request's results
+RESCORE_TOPIC = "rescore"
+RESCORE_TASKS = 2
+SCORE_RTOL = 1e-6
+NEAR_TIE = 1e-3               # top-2 logit gap below which tokens may differ
+BROKER_PINGS = 500
+SYNAPP = dict(T=100, D=0.005, I=1 << 16, N=4, vs_shards=2,
+              score_candidates=3, inference_shards=1)
 
 
 def log(msg: str) -> None:
@@ -921,6 +993,7 @@ def serve(phase: int, cfg, seed: int, kernels: dict, *,
         module.LAUNCHES = 0
         if hasattr(module, "LAUNCHES_BY_DESIGN"):
             module.LAUNCHES_BY_DESIGN = dict.fromkeys(module.DESIGNS, 0)
+    timing = {"prefill_ms": [], "decode_ms_per_step": []}
     try:
         for r in range(requests):
             times["prefill"].clear()
@@ -944,6 +1017,9 @@ def serve(phase: int, cfg, seed: int, kernels: dict, *,
                 f"decode {np.mean(times['decode']) * 1e3:.2f} ms/step over "
                 f"{len(times['decode'])} steps, wall {wall * 1e3:.1f} ms; "
                 f"row 0 tail {new[0, -6:].tolist()}")
+            timing["prefill_ms"].append(times["prefill"][0] * 1e3)
+            timing["decode_ms_per_step"].append(
+                float(np.mean(times["decode"])) * 1e3)
     finally:
         lm_api.prefill, lm_api.decode_step = plain
         # the wrappers hold the engine's bound methods: a cycle through it
@@ -962,6 +1038,7 @@ def serve(phase: int, cfg, seed: int, kernels: dict, *,
               f"{requests * per}")
     out = {name: {"launches": launches[name], "launches_per_request": per}
            for name, (_, per) in kernels.items()}
+    out["timing"] = {**timing, "tok_s": engine.throughput()}
     for name, (module, _) in kernels.items():
         if hasattr(module, "LAUNCHES_BY_DESIGN"):
             out[name]["launches_by_design"] = dict(module.LAUNCHES_BY_DESIGN)
@@ -1390,14 +1467,14 @@ def hold_gmm(case, dtype, gen) -> float:
     return err
 
 
-def hold_gmm_live(case, gen) -> float:
-    """The kernel with ``live`` marking GMM_LIVE of the G experts at a
+def hold_gmm_live(case, gen, n_live: int = GMM_LIVE) -> float:
+    """The kernel with ``live`` marking ``n_live`` of the G experts at a
     decode shape. The other experts' rows of xe are zero, as the dispatch
     gives them, and their weights NaN: the kernel must write zeros there
     without reading them, and agree with gmm_reference elsewhere."""
     xe, w = gmm_inputs(case, torch.bfloat16, gen)
     G = case[0]
-    live = torch.arange(G, device=DEV) % (G // GMM_LIVE) == 0
+    live = torch.arange(G, device=DEV) % (G // n_live) == 0
     xe[~live] = 0
     want = gmm_reference(xe, w)
     w[~live] = float("nan")
@@ -1407,7 +1484,7 @@ def hold_gmm_live(case, gen) -> float:
     check(bool(torch.isfinite(got).all()) and not bool(got[~live].any())
           and torch.allclose(got.float(), want.float(), rtol=0.0,
                              atol=bf16_ulp(want)),
-          f"moe_gmm {case} live {GMM_LIVE} of {G}: max abs err {err}")
+          f"moe_gmm {case} live {n_live} of {G}: max abs err {err}")
     log(f"  moe_gmm {case} live {int(live.sum())} of {G} (the others' weights "
         f"NaN) max abs err {err:.3e}, zeros where not live")
     return err
@@ -2350,7 +2427,449 @@ def phase_new_flash_report() -> dict:
             "vlm_shape": time_flash(FA_VLM, SEED + 41)}
 
 
+def phase_hd112_flash() -> dict:
+    log("phase 34: hold flash_attention at head dim 112 (kimi-k2: zero-padded "
+        "to the kernel's 128, scaled by 112 ** -0.5) against its plain "
+        "version, f32 and bf16, then time it at kimi-k2's serving shape")
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 43)
+    for dtype in (torch.float32, torch.bfloat16):
+        for case in FA_HD112_CASES:
+            hold_flash(case, dtype, gen)
+    err = hold_flash(FA_KIMI, torch.bfloat16, gen)
+    torch.cuda.empty_cache()
+    timed = time_flash(FA_KIMI, SEED + 44)
+    B, Sq, Sk, H = FA_KIMI[:4]
+    padded = 4 * 128 * B * H * live_pairs(Sq, Sk, True, None, 0)
+    log(f"  the padded launch does {padded / 1e9:.1f} GFLOP at head dim 128; "
+        f"at it the kernel ran {padded / timed['ms'] / 1e9:.1f} TFLOP/s")
+    return {"max_abs_err_kimi": err, "kimi_shape": {
+        **timed, "padded_gflop": padded / 1e9}}
+
+
+def kimi_attention_hold() -> float:
+    """Layer 0's attention sub-layer of kimi-k2 at published widths in f32,
+    on its own seeded weights: through the kernel (hd 112 padded to 128)
+    against the plain attention, on KIMI_ATTN_SHAPE tokens."""
+    cfg = f32_config(KIMI_ARCH, num_layers=KIMI_LAYERS)
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 45)
+    p = lm_attn.attention_params(InitMaker(gen, torch.float32, DEV), cfg)
+    B, S = KIMI_ATTN_SHAPE
+    x = torch.randn(B, S, cfg.d_model, generator=gen, device=DEV)
+    cos, sin = lm_transformer.rope_tables(
+        cfg, lm_transformer.positions_for(cfg, B, S, device=DEV))
+    fa0 = flash_attention.LAUNCHES
+    with torch.inference_mode():
+        got, _ = lm_attn.self_attention(p, x, cfg, cos=cos, sin=sin)
+        fa1 = flash_attention.LAUNCHES
+        want, _ = lm_attn.self_attention(p, x, cfg.replace(attn_impl="ref"),
+                                         cos=cos, sin=sin)
+    torch.cuda.synchronize()
+    check(fa1 - fa0 == 1 and flash_attention.LAUNCHES == fa1,
+          f"attention sub-layer: flash launched {fa1 - fa0} times, plain "
+          f"{flash_attention.LAUNCHES - fa1}")
+    err = (got - want).abs().max().item()
+    check(bool(torch.isfinite(got).all()) and torch.allclose(
+        got, want, rtol=KIMI_ATTN_TOL, atol=KIMI_ATTN_TOL),
+        f"kimi-k2 attention sub-layer, kernel vs plain: max abs err {err}")
+    log(f"  layer 0 attention sub-layer, {B} x {S} tokens, {cfg.num_heads} "
+        f"heads / {cfg.num_kv_heads} KV heads of {cfg.resolved_head_dim}, "
+        f"f32: kernel vs plain max abs err {err:.3e} (max |out| "
+        f"{want.abs().max().item():.2f}; rtol = atol = {KIMI_ATTN_TOL:.0e})")
+    return err
+
+
+def phase_kimi() -> dict:
+    cfg = get_config(KIMI_ARCH).replace(num_layers=KIMI_LAYERS,
+                                        attn_impl="kernel", moe_impl="gmm")
+    E, D, F = cfg.num_experts, cfg.d_model, cfg.d_ff
+    prefill_rows = SERVE_BATCH * lm_moe._capacity(cfg, SERVE_PROMPT)
+    decode_rows = SERVE_BATCH * lm_moe._capacity(cfg, 1)
+    log(f"phase 35: {KIMI_ARCH} at published widths cut to {KIMI_LAYERS} "
+        f"layer: the f32 attention sub-layer at head dim 112, gmm at {E} "
+        f"experts, then serving in bf16")
+    out = {"max_abs_err_attention_f32": kimi_attention_hold()}
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 46)
+    shapes = {"prefill": (E, prefill_rows, D, F),
+              "prefill_down": (E, prefill_rows, F, D),
+              "decode": (E, decode_rows, D, F),
+              "decode_down": (E, decode_rows, F, D)}
+    for name, case in shapes.items():
+        out[f"max_abs_err_{name}"] = hold_gmm(case, torch.bfloat16, gen)
+        torch.cuda.empty_cache()
+    for name in ("decode", "decode_down"):
+        hold_gmm_live(shapes[name], gen, KIMI_DECODE_LIVE)
+        torch.cuda.empty_cache()
+    out["prefill_shape"] = time_gmm(shapes["prefill"], SEED + 47)
+    torch.cuda.empty_cache()
+    out["decode_shape_live"] = time_gmm(shapes["decode"], SEED + 48,
+                                        KIMI_DECODE_LIVE)
+    torch.cuda.empty_cache()
+    log(f"  {KIMI_ARCH} cut to {KIMI_LAYERS} layer: "
+        f"{param_count(cfg) / 1e9:.2f} G parameters, "
+        f"{2 * param_count(cfg) / 2**30:.1f} GiB in bf16")
+    L = cfg.num_layers
+    served = serve(35, cfg, SEED + 49,
+                   {"moe_gmm": (moe_gmm, 3 * L * SERVE_MAX_NEW),
+                    "flash_attention": (flash_attention, L)})
+    return {"gmm": out, "served": served}
+
+
+# -- phases 36-37: the multi-process fabric, in a fresh interpreter ----------
+
+def fabric_engine(path: str):
+    """The inference shard's engine factory: internlm2-1.8b at published
+    widths and depth in bf16 on the card, seeded with FABRIC_SEED. After
+    every prefill and decode step it writes the flash launch count and the
+    step's time to ``path`` (JSON), which the script reads after the
+    requests: the fabric itself carries no counts."""
+    cfg = get_config(LM_ARCH).replace(attn_impl="kernel")
+    gen = torch.Generator(device=DEV).manual_seed(FABRIC_SEED)
+    engine = Engine(cfg, lm_api.init_params(cfg, gen, device=DEV),
+                    max_new=SERVE_MAX_NEW)
+    flash_attention.LAUNCHES = 0
+    stats = {"flash_launches": 0, "prefill_s": [], "decode_s": [],
+             "pid": os.getpid(), "device": torch.cuda.get_device_name(0)}
+
+    def write():
+        stats["flash_launches"] = flash_attention.LAUNCHES
+        with open(path + ".tmp", "w") as f:
+            json.dump(stats, f)
+        os.replace(path + ".tmp", path)
+
+    def timed(name, fn):
+        def run(*args, **kw):
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)     # returns host tokens: the device is done
+            stats[name].append(time.perf_counter() - t0)
+            write()
+            return out
+        return run
+
+    engine.prefill_batch = timed("prefill_s", engine.prefill_batch)
+    engine.decode_batch = timed("decode_s", engine.decode_batch)
+    write()
+    return engine
+
+
+_POOL_STATE: dict = {}
+
+
+def pool_rescore(seed: int) -> dict:
+    """The process-pool worker's re-score: the full-width surrogate drawn
+    from ``seed`` on the card ranks the whole space through ``rank_space``.
+    The first call builds the surrogate and featurizes the space; later
+    calls reuse them. Everything returned is numpy or a number."""
+    if "sur" not in _POOL_STATE:
+        _POOL_STATE["sur"] = Surrogate(CONFIG, seed=seed, device=DEV)
+        _POOL_STATE["feats"] = featurize(SPACE, range(SPACE.num_molecules))
+    sur, feats = _POOL_STATE["sur"], _POOL_STATE["feats"]
+    before = mpnn_mp.LAUNCHES
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    scores, order = rank_space(sur, feats, KAPPA)
+    wall = time.perf_counter() - t0
+    return {"scores": scores, "order": order,
+            "launches": mpnn_mp.LAUNCHES - before, "wall_s": wall,
+            "pid": os.getpid(), "device": torch.cuda.get_device_name(0)}
+
+
+def _percentiles(xs) -> dict:
+    xs = np.asarray(xs) * 1e6
+    return {"median_us": float(np.median(xs)),
+            "p99_us": float(np.percentile(xs, 99))}
+
+
+def fabric_serve_and_rescore(outdir: str) -> dict:
+    """Phase 36's fabric run: a ``proc`` broker, one inference shard and a
+    one-worker process pool, all forked before anything touches CUDA."""
+    from repro_torch.core import ColmenaQueues, ProcessPoolTaskServer
+    from repro_torch.serving.shard import (InferenceClient, ServeSpec,
+                                           send_shard_stop,
+                                           start_inference_shard)
+    stats_path = os.path.join(outdir, "shard_stats.json")
+    spec = ServeSpec(engine_factory=lambda: fabric_engine(stats_path),
+                     max_batch=SERVE_BATCH, prompt_buckets=(SERVE_PROMPT,),
+                     max_batch_delay_ms=5000.0, max_new_cap=SERVE_MAX_NEW)
+    queues = ColmenaQueues([RESCORE_TOPIC], backend="proc", serve_spec=spec,
+                           lease_timeout=600.0)
+    shard = pool = None
+    try:
+        rtt = []
+        for _ in range(BROKER_PINGS):
+            t0 = time.perf_counter()
+            queues.transport.clock_sync()
+            rtt.append(time.perf_counter() - t0)
+        log(f"  broker round trip (clock_sync, one frame each way, "
+            f"{BROKER_PINGS} calls): median {np.median(rtt) * 1e6:.1f} us, "
+            f"p99 {np.percentile(rtt, 99) * 1e6:.1f} us")
+        shard = start_inference_shard(queues.transport.address, spec,
+                                      lease_timeout=600.0,
+                                      identity="infer-shard:0")
+        pool = ProcessPoolTaskServer(queues, workers_per_topic=1)
+        pool.register(pool_rescore, topic=RESCORE_TOPIC, name="rescore")
+        pool.start()
+        rng = np.random.default_rng(FABRIC_SEED)
+        vocab = get_config(LM_ARCH).vocab_size
+        prompts = np.stack([lm_tokens(rng, SERVE_BATCH, SERVE_PROMPT, vocab)
+                            for _ in range(SERVE_REQUESTS)])
+        client = InferenceClient(queues)
+        tokens, walls = [], []
+        for r in range(SERVE_REQUESTS):
+            t0 = time.perf_counter()
+            res = client.infer(prompts[r].tolist(), max_new=SERVE_MAX_NEW,
+                               timeout=FABRIC_GET_TIMEOUT)
+            walls.append(time.perf_counter() - t0)
+            check(all(x.success for x in res),
+                  f"shard request {r}: {[x.error for x in res if not x.success]}")
+            tokens.append([x.value for x in res])
+            log(f"  shard request {r}: {SERVE_BATCH} x {SERVE_PROMPT} + "
+                f"{SERVE_MAX_NEW} through InferenceClient in "
+                f"{walls[-1] * 1e3:.1f} ms")
+        rescores = []
+        for t in range(RESCORE_TASKS):
+            queues.send_task(FABRIC_SEED, method="rescore", topic=RESCORE_TOPIC)
+            t0 = time.perf_counter()
+            res = queues.get_result(RESCORE_TOPIC, timeout=FABRIC_GET_TIMEOUT)
+            check(res is not None and res.success,
+                  f"re-score task {t}: {res and res.error}")
+            rescores.append(res.value)
+            log(f"  pool re-score {t} on worker {res.worker}: "
+                f"{res.value['wall_s'] * 1e3:.1f} ms in rank_space, "
+                f"{(time.perf_counter() - t0) * 1e3:.1f} ms round trip, "
+                f"{res.value['launches']} mpnn_mp launches")
+    finally:
+        if shard is not None:
+            try:
+                send_shard_stop(queues.transport, spec.topic)
+            except (ConnectionError, OSError):
+                pass
+            shard.join(timeout=60)
+            if shard.is_alive():
+                shard.terminate()
+                shard.join(timeout=10)
+        if pool is not None:
+            pool.stop()
+        queues.shutdown()
+    check(shard.exitcode == 0, f"inference shard exited {shard.exitcode}")
+    with open(stats_path) as f:
+        shard_stats = json.load(f)
+    np.savez(os.path.join(outdir, "fabric.npz"), prompts=prompts,
+             tokens=np.asarray(tokens, np.int64),
+             scores=np.stack([r["scores"] for r in rescores]),
+             orders=np.stack([r["order"] for r in rescores]))
+    return {"broker_rtt": _percentiles(rtt), "client_wall_s": walls,
+            "shard": shard_stats,
+            "rescore": [{k: v for k, v in r.items()
+                         if k not in ("scores", "order")} for r in rescores]}
+
+
+def fabric_synapp(**overrides) -> dict:
+    """Phase 37: the port's synapp over the ``proc`` transport with
+    process-pool workers, a sharded Value Server and one inference shard
+    ranking each submission's candidates (``score_candidates=0``: none, the
+    paper's envelope)."""
+    from repro_torch.apps.synapp import SynConfig, run_synapp
+    cfg = SynConfig(backend="proc", lease_timeout=60.0,
+                    **{**SYNAPP, **overrides})
+    res = run_synapp(cfg)
+    check(res["completed_total"] == cfg.T and res["n_results"] == cfg.T
+          and res["scored"] == cfg.T * cfg.score_candidates,
+          f"synapp completed {res['completed_total']} of {cfg.T}, scored "
+          f"{res['scored']}")
+    busy = res["utilization"] * cfg.N * res["makespan"]
+    per_task = (cfg.N * res["makespan"] - busy) / res["n_results"]
+    latency = sum(v for k, v in res["medians"].items() if "result" in k)
+    scorer = (f"{cfg.inference_shards} scorer shard, {cfg.score_candidates} "
+              "candidates a task" if cfg.score_candidates else "no scorer")
+    log(f"  synapp T={cfg.T} D={cfg.D} s I={cfg.I} B N={cfg.N} (proc "
+        f"backend, {cfg.vs_shards} Value Server shards, {scorer}): makespan {res['makespan']:.3f} s, summed "
+        f"task runtimes {busy:.3f} s, utilization {res['utilization']:.3f}")
+    log(f"  per-task dispatch overhead (N x makespan - summed runtimes) / T "
+        f"= {per_task * 1e3:.3f} ms; result latency (median result "
+        f"components) {latency * 1e3:.3f} ms; median overhead "
+        f"{res['total_overhead_median'] * 1e3:.3f} ms")
+    for k, v in sorted(res["medians"].items()):
+        log(f"    {k:24s} {v * 1e6:10.1f} us")
+    return {"makespan_s": res["makespan"], "busy_s": busy,
+            "utilization": res["utilization"],
+            "per_task_overhead_ms": per_task * 1e3,
+            "result_latency_ms": latency * 1e3,
+            "median_overhead_ms": res["total_overhead_median"] * 1e3,
+            "medians_us": {k: v * 1e6 for k, v in res["medians"].items()},
+            "config": {**SYNAPP, **overrides}}
+
+
+def fabric_main(outdir: str) -> None:
+    """``chip_smoke.py --fabric DIR``: phases 36 and 37 in an interpreter
+    that never initialises CUDA; the forked shard and pool worker each do.
+    Logs as it goes and prints one JSON line last."""
+    log("phase 36: serve internlm2-1.8b from a forked inference shard and "
+        "re-score from a process-pool worker over a proc broker")
+    out = {"fabric": fabric_serve_and_rescore(outdir)}
+    log("phase 37: synapp on the proc fabric, with the scorer shard "
+        "steering each submission, then without it (the paper's envelope)")
+    out["synapp"] = fabric_synapp()
+    out["synapp_envelope"] = fabric_synapp(score_candidates=0)
+    print(json.dumps(out), flush=True)
+
+
+def run_fabric(outdir: str) -> dict:
+    """Start ``chip_smoke.py --fabric`` in its own session, relay its log
+    and read its JSON line; kill its whole process group if it outlives
+    FABRIC_TIMEOUT."""
+    proc = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--fabric", outdir],
+        stdout=subprocess.PIPE, text=True, start_new_session=True)
+    lines = []
+    timer = threading.Timer(FABRIC_TIMEOUT,
+                            lambda: os.killpg(proc.pid, 9))
+    timer.start()
+    try:
+        for line in proc.stdout:
+            lines.append(line.rstrip("\n"))
+            if not line.startswith("{"):
+                log("  | " + lines[-1])
+        rc = proc.wait()
+    finally:
+        timer.cancel()
+        with contextlib.suppress(ProcessLookupError):
+            os.killpg(proc.pid, 9)      # anything the fabric left behind
+    check(rc == 0, f"the fabric interpreter exited {rc}")
+    return json.loads(lines[-1])
+
+
+def greedy_with_gaps(params, cfg, prompts):
+    """Greedy tokens of an in-process prefill and decode at the shard's
+    padded shape, and each step's top-2 logit gap."""
+    B, S = prompts.shape
+    toks, gaps = [], []
+    with torch.inference_mode():
+        logits, cache = lm_api.prefill(
+            params, cfg, {"tokens": torch.as_tensor(prompts, device=DEV)},
+            reserve=S + SERVE_MAX_NEW)
+        for step in range(SERVE_MAX_NEW):
+            if step:
+                logits, cache = lm_api.decode_step(params, cfg, cache, cur,
+                                                   S + step - 1)
+            top = logits.float().topk(2, dim=-1).values
+            gaps.append((top[:, 0] - top[:, 1]).cpu().numpy())
+            cur = logits.argmax(-1)[:, None]
+            toks.append(cur[:, 0].cpu().numpy())
+    return np.stack(toks, 1), np.stack(gaps, 1)
+
+
+def phase_fabric(lm_timing: dict) -> dict:
+    """Phases 36-37: run the fabric interpreter, then hold what its shard
+    and pool worker computed against in-process runs on the same seeded
+    weights."""
+    import tempfile
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-fabric-") as outdir:
+        t0 = time.perf_counter()
+        out = run_fabric(outdir)
+        fabric_s = time.perf_counter() - t0
+        data = dict(np.load(os.path.join(outdir, "fabric.npz")))
+    fab, shard = out["fabric"], out["fabric"]["shard"]
+    log(f"phase 36 (held in this process): the fabric interpreter took "
+        f"{fabric_s:.1f} s")
+    cfg = get_config(LM_ARCH).replace(attn_impl="kernel")
+    per = cfg.num_layers
+    check(shard["flash_launches"] == SERVE_REQUESTS * per,
+          f"the shard launched flash {shard['flash_launches']} times, "
+          f"expected {SERVE_REQUESTS * per}")
+    check(len(shard["prefill_s"]) == SERVE_REQUESTS
+          and len(shard["decode_s"]) == SERVE_REQUESTS * (SERVE_MAX_NEW - 1),
+          f"the shard ran {len(shard['prefill_s'])} prefills and "
+          f"{len(shard['decode_s'])} decode steps")
+    steps = SERVE_MAX_NEW - 1
+    for r in range(SERVE_REQUESTS):
+        dec = shard["decode_s"][r * steps:(r + 1) * steps]
+        log(f"  shard request {r}: prefill {shard['prefill_s'][r] * 1e3:.1f} "
+            f"ms, decode {np.mean(dec) * 1e3:.2f} ms/step, client wall "
+            f"{fab['client_wall_s'][r] * 1e3:.1f} ms; in-process (phase 7) "
+            f"prefill {lm_timing['prefill_ms'][r]:.1f} ms, decode "
+            f"{lm_timing['decode_ms_per_step'][r]:.2f} ms/step")
+    warm = fab["client_wall_s"][1:]
+    shard_tok_s = SERVE_BATCH * SERVE_MAX_NEW * len(warm) / sum(warm)
+    log(f"  shard tok/s over the warm requests, client wall: "
+        f"{shard_tok_s:.1f}; in-process (phase 7) {lm_timing['tok_s']:.1f}; "
+        f"broker round trip median {fab['broker_rtt']['median_us']:.1f} us; "
+        f"flash launches {shard['flash_launches']} ({per} per request)")
+
+    params = lm_api.init_params(
+        cfg, torch.Generator(device=DEV).manual_seed(FABRIC_SEED), device=DEV)
+    ties, equal = [], 0
+    for r in range(SERVE_REQUESTS):
+        want, gaps = greedy_with_gaps(params, cfg, data["prompts"][r])
+        got = data["tokens"][r]
+        check(got.shape == want.shape, f"shard tokens {got.shape}")
+        for b in range(SERVE_BATCH):
+            near = np.flatnonzero(gaps[b] < NEAR_TIE)
+            upto = near[0] if near.size else SERVE_MAX_NEW
+            if near.size:
+                ties.append((r, b, int(upto), float(gaps[b, upto])))
+            equal += bool(np.array_equal(got[b], want[b]))
+            check(np.array_equal(got[b, :upto], want[b, :upto]),
+                  f"request {r} row {b}: shard tokens {got[b, :upto].tolist()}"
+                  f" != in-process {want[b, :upto].tolist()}")
+    del params
+    torch.cuda.empty_cache()
+    log(f"  shard tokens against the in-process greedy tokens: "
+        f"{equal} of {SERVE_REQUESTS * SERVE_BATCH} rows equal in all "
+        f"{SERVE_MAX_NEW}; {len(ties)} rows reach a near-tie (top-2 gap < "
+        f"{NEAR_TIE:.0e}), where the hold stops; (request, row, step, gap): "
+        f"{ties}")
+
+    sur = Surrogate(CONFIG, seed=FABRIC_SEED, device=DEV)
+    feats = featurize(SPACE, range(SPACE.num_molecules))
+    want, order = rank_space(sur, feats, KAPPA)
+    per_task = CONFIG.message_steps * math.ceil(
+        SPACE.num_molecules / sur.chunk_size(SPACE.max_atoms))
+    del sur, feats
+    torch.cuda.empty_cache()
+    for t, info in enumerate(fab["rescore"]):
+        got = data["scores"][t]
+        err = float(np.abs(got - want).max())
+        check(np.allclose(got, want, rtol=SCORE_RTOL,
+                          atol=SCORE_RTOL * np.abs(want).max()),
+              f"pool re-score {t}: max abs err {err} against in-process")
+        diff = np.flatnonzero(data["orders"][t] != order)
+        check(np.allclose(want[data["orders"][t][diff]], want[order[diff]],
+                          rtol=SCORE_RTOL, atol=0),
+              f"pool re-score {t}: order differs at {diff.size} places "
+              "that are not ties")
+        check(info["launches"] == per_task,
+              f"pool re-score {t}: mpnn_mp launched {info['launches']} "
+              f"times, expected {per_task}")
+        log(f"  pool re-score {t}: max abs err {err:.3e} against the "
+            f"in-process re-score (rtol {SCORE_RTOL:.0e}), order differs at "
+            f"{diff.size} tied places, {info['launches']} mpnn_mp launches "
+            f"({CONFIG.message_steps} steps x {per_task // CONFIG.message_steps}"
+            f" chunks), {info['wall_s'] * 1e3:.1f} ms")
+    syn, env = out["synapp"], out["synapp_envelope"]
+    return {"flash": {"launches": shard["flash_launches"],
+                      "launches_per_request": per},
+            "mpnn_mp": {"launches": sum(i["launches"] for i in fab["rescore"]),
+                        "launches_per_rescore": per_task},
+            "summary": {"broker_rtt_us": fab["broker_rtt"],
+                        "shard_prefill_ms": [x * 1e3 for x in shard["prefill_s"]],
+                        "shard_tok_s": shard_tok_s,
+                        "rescore_ms": [i["wall_s"] * 1e3 for i in fab["rescore"]],
+                        "synapp_per_task_overhead_ms":
+                            syn["per_task_overhead_ms"],
+                        "synapp_result_latency_ms": syn["result_latency_ms"],
+                        "envelope_per_task_overhead_ms":
+                            env["per_task_overhead_ms"],
+                        "envelope_result_latency_ms":
+                            env["result_latency_ms"],
+                        "fabric_s": fabric_s}}
+
+
 def main() -> None:
+    if sys.argv[1:2] == ["--fabric"]:
+        fabric_main(sys.argv[2])
+        return
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
     t_start = t0 = time.perf_counter()
@@ -2378,7 +2897,8 @@ def main() -> None:
     flash = phase_flash_kernels()
     phase_lm_prefill()
     torch.cuda.empty_cache()
-    lm_launches = phase_lm_serve()["flash_attention"]
+    lm = phase_lm_serve()
+    lm_launches = lm["flash_attention"]
     torch.cuda.empty_cache()
     flash.update(phase_flash_report())
 
@@ -2407,6 +2927,9 @@ def main() -> None:
     torch.cuda.empty_cache()
     moe = phase_moe_serve()
     gmm.update(moe["moe_gmm"])
+    # the gmm kernel runs on two serving paths; each is counted alone
+    gmm_paths = {MOE_ARCH: {k: gmm.pop(k) for k in
+                            ("launches", "launches_per_request")}}
     flash["launches_by_path"][MOE_ARCH] = moe["flash_attention"]
     torch.cuda.empty_cache()
     gmm_times, flash["moe_shape"] = phase_gmm_report()
@@ -2441,7 +2964,24 @@ def main() -> None:
     paths[VLM_ARCH] = phase_vlm_serve()
     torch.cuda.empty_cache()
     flash.update(phase_new_flash_report())
+    torch.cuda.empty_cache()
+
+    flash.update(phase_hd112_flash())
+    torch.cuda.empty_cache()
+    kimi = phase_kimi()
+    gmm["kimi_k2"] = kimi["gmm"]
+    gmm_paths[KIMI_ARCH] = kimi["served"]["moe_gmm"]
+    paths[KIMI_ARCH] = kimi["served"]["flash_attention"]
+    del kimi
+    torch.cuda.empty_cache()
+    fabric = phase_fabric(lm["timing"])
+    paths["fabric shard, " + LM_ARCH] = fabric["flash"]
+    kernel["launches_by_path"]["pool worker re-score"] = \
+        fabric["mpnn_mp"]["launches"]
+    kernel["launches"] = sum(kernel["launches_by_path"].values())
     flash["launches"] = sum(v["launches"] for v in paths.values())
+    gmm["launches_by_path"] = gmm_paths
+    gmm["launches"] = sum(v["launches"] for v in gmm_paths.values())
 
     card = subprocess.run(
         ["nvidia-smi", "--id=0", "--query-gpu=name,power.limit",
@@ -2449,6 +2989,7 @@ def main() -> None:
         capture_output=True, text=True, check=True).stdout.strip()
     log(card)
     log(f"train: {json.dumps(train)}")
+    log(f"fabric: {json.dumps(fabric['summary'])}")
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     log(json.dumps({"kernels": [{
         "name": "mpnn_mp", "route": "cuda",

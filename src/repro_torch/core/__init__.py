@@ -8,8 +8,11 @@ campaign formulation of §II-A.
 from repro_torch.core.campaign import (AssaySpec, CampaignRecord,  # noqa: F401
                                  Observation, checkpoint_campaign,
                                  resume_campaign)
+from repro_torch.core.cluster import (ClusterLauncher, ClusterSpec,  # noqa: F401
+                                HostSpec)
 from repro_torch.core import policies  # noqa: F401
 from repro_torch.core.message import Intermediate, Result, Task  # noqa: F401
+from repro_torch.core.process_pool import ProcessPoolTaskServer  # noqa: F401
 from repro_torch.core.queues import ColmenaQueues  # noqa: F401
 from repro_torch.core.resources import ResourceTracker  # noqa: F401
 from repro_torch.core.streaming import (TaskCancelled,  # noqa: F401
@@ -17,4 +20,5 @@ from repro_torch.core.streaming import (TaskCancelled,  # noqa: F401
 from repro_torch.core.task_server import TaskServer  # noqa: F401
 from repro_torch.core.thinker import (BaseThinker, agent, event_responder,  # noqa: F401
                                 result_processor)
+from repro_torch.core.transport.shards import ShardedValueServer  # noqa: F401
 from repro_torch.core.value_server import Proxy, ValueServer  # noqa: F401

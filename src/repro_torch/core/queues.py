@@ -161,9 +161,10 @@ class ColmenaQueues:
         Every queue/checkpoint/resume semantic is identical; topics
         homed at other federation members are simply one relay hop
         away."""
-        raise NotImplementedError(
-            "ColmenaQueues.connect needs the 'proc' transport, which is not "
-            "ported yet: ROADMAP.md section 1 item 8")
+        from repro_torch.core.transport.proc import ProcTransport
+        kw = {} if lease_timeout is None else {"lease_timeout": lease_timeout}
+        return cls(topics, transport=ProcTransport(address=address, **kw),
+                   **kwargs)
 
     def topics(self):
         """Worker-pool topics.  The serve topic is excluded: it is

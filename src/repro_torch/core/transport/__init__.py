@@ -102,8 +102,7 @@ def make_transport(backend: str = "local", **kwargs) -> Transport:
     if backend == "local":
         return LocalTransport(**kwargs)
     if backend == "proc":
-        raise NotImplementedError(
-            "the 'proc' transport (broker process, ProcTransport) is not "
-            "ported yet: ROADMAP.md section 1 item 8")
+        from repro_torch.core.transport.proc import ProcTransport
+        return ProcTransport(**kwargs)
     raise ValueError(f"unknown transport backend {backend!r}; "
                      "expected 'local' or 'proc'")

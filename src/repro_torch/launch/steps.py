@@ -49,13 +49,17 @@ def _grads_of(params, cfg, batch):
 
 
 def _split(batch, k):
-    """The k microbatches of a batch, along its leading axis."""
-    def resh(t):
-        b = t.shape[0]
+    """The k microbatches of a batch, along its batch axis: the leading one,
+    except for M-RoPE ``positions`` (3, B, S), which carries it on axis 1."""
+    def resh(t, axis=0):
+        b = t.shape[axis]
         assert b % k == 0, (b, k)
-        return t.reshape((k, b // k) + tuple(t.shape[1:]))
+        t = t.reshape(tuple(t.shape[:axis]) + (k, b // k)
+                      + tuple(t.shape[axis + 1:]))
+        return t.movedim(axis, 0)
 
-    split = {name: resh(t) for name, t in batch.items()}
+    split = {name: resh(t, 1 if name == "positions" else 0)
+             for name, t in batch.items()}
     return [{name: t[i] for name, t in split.items()} for i in range(k)]
 
 

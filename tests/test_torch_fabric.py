@@ -23,6 +23,15 @@ COPIED = [
     "core/value_server.py", "core/queues.py", "core/streaming.py",
     "core/resources.py", "core/task_server.py", "core/thinker.py",
     "core/campaign.py",
+    # the multi-process fabric
+    "core/transport/frames.py", "core/transport/shm.py",
+    "core/transport/broker.py", "core/transport/proc.py",
+    "core/transport/shards.py", "core/process_pool.py",
+    "observability/monitor.py", "observability/report.py",
+    "core/cluster/__init__.py", "core/cluster/spec.py",
+    "core/cluster/agent.py", "core/cluster/federation.py",
+    "core/cluster/launcher.py",
+    "serving/batcher.py", "serving/shard.py", "apps/synapp.py",
 ]
 
 _NDCODEC_HOST_OLD = '''    """(host_ndarray, kind) for a codec-eligible value, else (None, None).
@@ -70,19 +79,42 @@ _NDCODEC_DECODE_NEW = '''    ``data``, whatever the frame's kind (a "jax" frame 
                         offset=off + hlen).reshape(meta["shape"])
     return arr'''
 
+_ENGINE_FACTORY_OLD = '''                           max_new: int = 32) -> Callable:
+    """An engine factory for the reduced reference model.  Returned as a
+    closure so the (heavy, jax-importing) build happens inside the shard
+    process, never in the fabric process that declares the spec."""
+    def build():
+        import jax
+        from repro_torch.configs.base import get_config
+        from repro_torch.models import api
+        from repro_torch.serving.engine import Engine
+        cfg = get_config(arch, reduced=reduced)
+        params = api.init_params(cfg, jax.random.PRNGKey(seed))
+        return Engine(cfg, params, max_new=max_new)'''
+_ENGINE_FACTORY_NEW = '''                           max_new: int = 32,
+                           device: str = "cuda") -> Callable:
+    """An engine factory for the reduced reference model.  Returned as a
+    closure so the build happens inside the shard process, never in the
+    fabric process that declares the spec: a child forked from a process
+    that has initialised CUDA cannot use the card.  The weights are drawn
+    on ``device`` (the card unless the caller asks for "cpu") from a
+    ``torch.Generator`` seeded with ``seed``."""
+    def build():
+        import torch
+        from repro_torch.configs.base import get_config
+        from repro_torch.models import api
+        from repro_torch.serving.engine import Engine
+        cfg = get_config(arch, reduced=reduced)
+        gen = torch.Generator(device=device).manual_seed(seed)
+        params = api.init_params(cfg, gen, device=device)
+        return Engine(cfg, params, max_new=max_new)'''
+
 # module -> [(text of the renamed original, text of the copy, reason)]
+# Not a delta of any copied module: ``repro_torch/__init__.py`` registers an
+# at-fork hook that runs every forked child's torch CPU ops on one thread
+# (torch's OpenMP pool does not survive fork; the fabric keeps `fork`).
 DELTAS = {
     "core/__init__.py": [
-        ("from repro_torch.core.cluster import (ClusterLauncher, ClusterSpec,"
-         "  # noqa: F401\n                                HostSpec)\n", "",
-         "cluster belongs to the multi-process fabric, not ported yet"),
-        ("from repro_torch.core.process_pool import ProcessPoolTaskServer"
-         "  # noqa: F401\n", "",
-         "process_pool belongs to the multi-process fabric, not ported yet"),
-        ("from repro_torch.core.transport.shards import ShardedValueServer"
-         "  # noqa: F401\n", "",
-         "transport.shards belongs to the multi-process fabric, not ported "
-         "yet"),
         ("from repro_torch.core.message import",
          "from repro_torch.core import policies  # noqa: F401\n"
          "from repro_torch.core.message import",
@@ -94,22 +126,10 @@ DELTAS = {
          "no jax branch: the port never sees a jax array"),
         (_NDCODEC_DECODE_OLD, _NDCODEC_DECODE_NEW,
          "no jax branch: a 'jax'-kind frame decodes to the host array")],
-    "core/transport/__init__.py": [(
-        '''        from repro_torch.core.transport.proc import ProcTransport
-        return ProcTransport(**kwargs)
-''', '''        raise NotImplementedError(
-            "the 'proc' transport (broker process, ProcTransport) is not "
-            "ported yet: ROADMAP.md section 1 item 8")
-''', "the proc transport is not ported yet")],
-    "core/queues.py": [(
-        '''        from repro_torch.core.transport.proc import ProcTransport
-        kw = {} if lease_timeout is None else {"lease_timeout": lease_timeout}
-        return cls(topics, transport=ProcTransport(address=address, **kw),
-                   **kwargs)
-''', '''        raise NotImplementedError(
-            "ColmenaQueues.connect needs the 'proc' transport, which is not "
-            "ported yet: ROADMAP.md section 1 item 8")
-''', "connect dials a broker through the proc transport, not ported yet")],
+    "serving/shard.py": [
+        (_ENGINE_FACTORY_OLD, _ENGINE_FACTORY_NEW,
+         "the default engine is the port's, drawn from a seeded "
+         "torch.Generator on the card unless the caller asks for the CPU")],
 }
 
 
@@ -124,15 +144,6 @@ def test_copy_matches_original(rel):
 
 def test_deltas_name_copied_modules():
     assert set(DELTAS) <= set(COPIED)
-
-
-def test_proc_transport_not_ported():
-    from repro_torch.core import ColmenaQueues
-    from repro_torch.core.transport import make_transport
-    with pytest.raises(NotImplementedError, match="item 8"):
-        make_transport("proc")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        ColmenaQueues.connect(["a"], ("localhost", 0))
 
 
 def _core(pkg):

@@ -46,6 +46,17 @@ CROSS = [
     (2, 300, 200, 16, 16, 64, False, None, None, 0),
     (2, 128, 384, 4, 4, 64, False, None, None, 0),
 ]
+# Head dim 112 (kimi-k2-1t-a32b), which the binding zero-pads to 128: the
+# six cases of tests/test_kernels.py at hd 112, off the tiles (Sq = Sk =
+# 1000; Sq = 37 at an offset), a window with a cap of 2, GQA 8, and a
+# non-causal Sq != Sk.
+HD112 = [(B, Sq, Sk, H, KVH, 112, c, w, cap, off)
+         for (B, Sq, Sk, H, KVH, _, c, w, cap, off) in CASES] + [
+    (1, 1000, 1000, 8, 1, 112, True, None, None, 0),
+    (1, 37, 333, 8, 8, 112, True, None, None, 296),
+    (1, 300, 300, 8, 4, 112, True, 70, 2.0, 0),
+    (2, 200, 300, 4, 4, 112, False, None, None, 0),
+]
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}   # tests/test_kernels.py
 
@@ -118,18 +129,35 @@ def test_plain_version_matches_jax_kernel_at_new_shapes(case, dtype):
 
 
 def test_binding_takes_head_dim_256_only_beside_32_64_128():
-    """The binding checks the head dim before the device: on CPU tensors hd
-    256 passes it (and is refused for the device), hd 96 or 512 is refused
-    for the head dim."""
+    """The binding checks the head dim before the device: on CPU tensors the
+    kernel's head dims 32-256, and the multiples of 8 it pads to one of
+    them (96, 112), pass it and are refused for the device; hd 100, 264 or
+    512 is refused for the head dim."""
     assert flash_attention.HEAD_DIMS == (32, 64, 128, 256)
-    for hd in (32, 64, 128, 256):
+    for hd in (32, 64, 96, 112, 128, 256):
         q = torch.zeros(1, 8, 2, hd)
         with pytest.raises(ValueError, match="CUDA"):
             flash_attention.flash_attention_cuda(q, q, q)
-    for hd in (96, 112, 512):
+    for hd in (100, 264, 512):
         q = torch.zeros(1, 8, 2, hd)
         with pytest.raises(ValueError, match="head_dim"):
             flash_attention.flash_attention_cuda(q, q, q)
+
+
+@pytest.mark.parametrize("case", HD112, ids=str)
+def test_zero_pad_to_128_is_exact(case):
+    """The binding's route for hd 112: zero-pad q, k and v to the kernel's
+    128 and scale by 112 ** -0.5. In the plain version that gives the
+    unpadded attention in its first 112 columns and zeros after them."""
+    hd = case[5]
+    q, k, v = (torch.from_numpy(a) for a in _inputs(*case[:6]))
+    causal, window, softcap, q_offset = case[6:]
+    want = attention_reference(q, k, v, **_kw(case))
+    pq, pk, pv = (torch.nn.functional.pad(t, (0, 128 - hd)) for t in (q, k, v))
+    # the plain version scales by its input's head dim: undo 128 ** -0.5
+    got = attention_reference(pq * (128 / hd) ** 0.5, pk, pv, **_kw(case))
+    torch.testing.assert_close(got[..., :hd], want, rtol=2e-6, atol=2e-6)
+    assert torch.equal(got[..., hd:], torch.zeros_like(got[..., hd:]))
 
 
 def test_dispatch_on_cpu():
@@ -146,8 +174,8 @@ def test_dispatch_on_cpu():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", list(DTYPES))
-@pytest.mark.parametrize("case", CASES + RAGGED + [SERVING] + HD256 + CROSS,
-                         ids=str)
+@pytest.mark.parametrize("case", CASES + RAGGED + [SERVING] + HD256 + CROSS
+                         + HD112, ids=str)
 def test_kernel_matches_plain_version(cuda, case, dtype):
     q, k, v = (torch.from_numpy(a).to(cuda, DTYPES[dtype])
                for a in _inputs(*case[:6]))
@@ -175,7 +203,7 @@ def test_kernel_reads_strided_inputs(cuda):
 
 @pytest.mark.cuda
 def test_kernel_refuses_what_it_does_not_take(cuda):
-    q = torch.zeros(1, 64, 2, 96, device=cuda)
+    q = torch.zeros(1, 64, 2, 100, device=cuda)
     with pytest.raises(ValueError, match="head_dim"):
         flash_attention.flash_attention_cuda(q, q, q)
     q = torch.zeros(1, 64, 2, 64, device=cuda, dtype=torch.float16)
@@ -206,7 +234,7 @@ BF16_KERNEL = [
     (1, 1000, 1000, 8, 4, 256, True, None, None, 0),
     (2, 2048, 2048, 8, 4, 256, True, 1000, 50.0, 0),
     (2, 300, 200, 16, 16, 64, False, None, None, 0),
-]
+] + HD112
 
 
 @pytest.mark.cuda
@@ -225,7 +253,7 @@ def test_bf16_kernel_matches_plain_version(cuda, case):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("hd", [32, 64, 128, 256])
+@pytest.mark.parametrize("hd", [32, 64, 112, 128, 256])
 def test_bf16_kernel_reads_packed_strided_inputs(cuda, hd):
     """bf16 q, k, v as head slices of one packed (B,S,H+2KVH,hd) projection,
     read in place through the tensor maps."""

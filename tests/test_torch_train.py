@@ -78,9 +78,11 @@ def _adam_direction(m, v, step, tc):
     return (m / c1) / (np.sqrt(v / c2) + tc.eps)
 
 
-def hold_train_steps(arch, microbatches, seq):
+def hold_train_steps(arch, microbatches, seq, make=None):
     """STEPS train steps of both packages, each from the JAX state before
-    it; every metric, param, m and v held after every step."""
+    it; every metric, param, m and v held after every step. ``make(rng,
+    cfg, seq)`` draws a batch (default: ``lm_batch``)."""
+    make = make or (lambda rng, cfg, seq: lm_batch(rng, cfg.vocab_size, seq))
     jcfg, cfg = configs(arch)
     tc = TrainConfig(warmup_steps=0)
     jstate = jax_steps.init_state(jcfg, jax.random.PRNGKey(0))
@@ -92,7 +94,7 @@ def hold_train_steps(arch, microbatches, seq):
     rng = np.random.default_rng(1)
     n_adam = n_params = 0
     for t in range(1, STEPS + 1):
-        batch = lm_batch(rng, cfg.vocab_size, seq)
+        batch = make(rng, cfg, seq)
         state = convert.train_state_from_numpy(
             jax.tree.map(np.asarray, jstate), cfg, "cpu")
         jstate, jm = jstep(jstate, jax.tree.map(jnp.asarray, batch))
@@ -198,20 +200,21 @@ def test_train_steps_match_jax(arch, microbatches):
     hold_train_steps(arch, microbatches, seq=32)
 
 
-def grads_under_remat(arch, remat, seq):
+def grads_under_remat(arch, remat, seq, make=None):
     """The loss gradients of one seeded batch at remat ``remat``."""
+    make = make or (lambda rng, cfg, seq: lm_batch(rng, cfg.vocab_size, seq))
     cfg = get_config(arch, reduced=True).replace(**F32, remat=remat)
     params = api.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
-    batch = to_torch(lm_batch(np.random.default_rng(3), cfg.vocab_size, seq))
+    batch = to_torch(make(np.random.default_rng(3), cfg, seq))
     grads, _ = steps._grads_of(params, cfg, batch)
     return dict(tree_flatten_with_paths(grads))
 
 
-def hold_remat(arch, remat, seq):
+def hold_remat(arch, remat, seq, make=None):
     """Remat recomputes the same operations on the same inputs: the
     gradients equal those of no remat bit for bit."""
-    want = grads_under_remat(arch, "none", seq)
-    got = grads_under_remat(arch, remat, seq)
+    want = grads_under_remat(arch, "none", seq, make)
+    got = grads_under_remat(arch, remat, seq, make)
     assert list(got) == list(want)
     for key in want:
         assert torch.equal(got[key], want[key]), key
