@@ -273,8 +273,10 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src
 from repro_torch.apps.electrolyte import (FEATURES, AppConfig,  # noqa: E402
                                           Surrogate, rank_space, run_campaign)
 from repro_torch.checkpoint.manager import CheckpointManager  # noqa: E402
-from repro_torch.configs.base import (TrainConfig, get_config,  # noqa: E402
-                                      model_flops_per_token, param_count)
+from repro_torch.configs.base import (ShapeConfig,  # noqa: E402
+                                      ShardingConfig, TrainConfig,
+                                      get_config, model_flops_per_token,
+                                      param_count)
 from repro_torch.configs.mpnn_surrogate import CONFIG  # noqa: E402
 from repro_torch.data import molecules  # noqa: E402
 from repro_torch.data.molecules import (MoleculeSpace,  # noqa: E402
@@ -295,18 +297,23 @@ from repro_torch.kernels.mpnn_mp.ref import message_pass_reference  # noqa: E402
 from repro_torch.kernels.rwkv6_scan import ops as wkv_ops  # noqa: E402
 from repro_torch.kernels.rwkv6_scan import rwkv6_scan  # noqa: E402
 from repro_torch.kernels.rwkv6_scan.ref import wkv6_chunked  # noqa: E402
+from repro_torch.distributed import axisenv, comm  # noqa: E402
+from repro_torch.launch import sharded  # noqa: E402
 from repro_torch.launch import steps as train_steps  # noqa: E402
+from repro_torch.launch.mesh import make_mesh  # noqa: E402
 from repro_torch.launch.train import train as train_lm  # noqa: E402
 from repro_torch.models import api as lm_api  # noqa: E402
 from repro_torch.models import attention as lm_attn  # noqa: E402
 from repro_torch.models import moe as lm_moe  # noqa: E402
+from repro_torch.models import moe_ep  # noqa: E402
 from repro_torch.models import transformer as lm_transformer  # noqa: E402
 from repro_torch.models.convert import params_to_numpy  # noqa: E402
 from repro_torch.models.layers import InitMaker  # noqa: E402
+from repro_torch.models.mlp import _ACTS  # noqa: E402
 from repro_torch.models.mpnn import mpnn_loss, param_shapes  # noqa: E402
 from repro_torch.serving.engine import Engine  # noqa: E402
 from repro_torch.utils.trees import (tree_flatten_with_paths,  # noqa: E402
-                                     tree_leaves, tree_map)
+                                     tree_leaves, tree_map, whole)
 
 DEV = "cuda"
 SEED = 0
@@ -573,6 +580,32 @@ KIMI_DECODE_LIVE = 64
 # has, and the fabric forks its broker, shard and workers (start method
 # ``fork``, as in the JAX package). Each forked child initialises the card.
 FABRIC_SEED = SEED + 47
+
+# Phases 38-39: two ranks share the one card on a (1, 2) ("data", "model")
+# mesh. NCCL refuses two ranks on one device, so they talk over gloo, and
+# DTensor's collectives are staged through the host
+# (``distributed/comm.py``): their times say nothing about an interconnect.
+EP_MESH = (1, 2)
+# kimi-k2's expert-parallel prefill at published widths cut to one layer:
+# each rank draws its 192 of the 384 experts (16.9 GB in bf16).
+EP_LAYERS = 1
+# The f32 EP layer at reduced widths against the single-process dropping
+# path at a capacity that drops nothing: they differ in summation order.
+EP_REDUCED_SHAPE = (4, 64)
+EP_F32_TOL = 1e-5
+# Phase 39: the sharded train step (phase 23's cut: 2 layers, f32, B=2,
+# S=256) in two modes, each step from the single-process state before it,
+# held by phase 23's rule; metrics to 1e-6 relative.
+SHARDED_MODES = ("dp_tp", "fsdp_tp")
+SHARDED_METRIC_TOL = 1e-6
+# Phase 40: the trainer at published widths on gemma2-2b (8 x 2048 a step;
+# a microbatch of 2 x 2048 has 4.2 GB of f32 logits at vocab 256,000) and
+# on qwen2-vl-72b cut to one layer (its 2.5 G embedding parameters alone
+# take 40 GB of bf16 weights, f32 moments and f32 gradient sums).
+GEMMA_TRAIN = dict(batch=8, seq=2048, microbatches=4, steps_total=10,
+                   lr=3e-4)
+VLM_TRAIN = dict(batch=8, seq=2048, microbatches=8, steps_total=6, lr=3e-4,
+                 num_layers=1)
 FABRIC_TIMEOUT = 480          # seconds for the whole fabric interpreter
 FABRIC_GET_TIMEOUT = 240      # seconds for one request's results
 RESCORE_TOPIC = "rescore"
@@ -1979,8 +2012,8 @@ def adam_direction(m, v, step: int, tc: TrainConfig):
 
 def hold_train_state(got: dict, want: dict, step: int, lr: float,
                      tc: TrainConfig):
-    """The card's state (``got``, flattened) against the CPU's after train
-    step ``step``: m and v within 1e-5 relative plus MOMENT_TOL of each
+    """The card's state (``got``, flattened) against the CPU's (or another
+    card state's, on its device) after train step ``step``: m and v within 1e-5 relative plus MOMENT_TOL of each
     tensor's largest |value|; params by ``hold_adam_step``'s rule at step t:
     TRAIN_TOL of max(1, the tensor's largest |value|) plus lr |u - u'|, u
     and u' the two devices' Adam directions from their own m and v.
@@ -1995,7 +2028,7 @@ def hold_train_state(got: dict, want: dict, step: int, lr: float,
         mv = {}
         for which in (".m", ".v"):
             wk = want[f"opt/{which}{rest}"]
-            gk = got[f"opt/{which}{rest}"].cpu()
+            gk = got[f"opt/{which}{rest}"].to(wk.device)
             err = (gk - wk).abs()
             scale = wk.abs().max().item()
             bad = err > 1e-5 * wk.abs() + MOMENT_TOL * scale
@@ -2007,7 +2040,7 @@ def hold_train_state(got: dict, want: dict, step: int, lr: float,
         adam = lr * (adam_direction(*(t[0] for t in mv.values()), step, tc)
                      - adam_direction(*(t[1] for t in mv.values()), step, tc)
                      ).abs()
-        g = got[key].cpu()
+        g = got[key].to(w.device)
         scale = max(1.0, w.abs().max().item())
         err = (g - w).abs()
         bad = err > TRAIN_TOL * scale + adam
@@ -2866,6 +2899,354 @@ def phase_fabric(lm_timing: dict) -> dict:
                         "fabric_s": fabric_s}}
 
 
+
+# -- phases 38-40: multi-device on torch.distributed, and training archs ------
+
+def ep_env(mesh) -> dict:
+    return dict(batch=(), batch_sizes=(), model="model",
+                model_size=EP_MESH[1], mesh=mesh)
+
+
+def hold_ep_gmm(p, xe, live, cfg, chunk: int = 16) -> list:
+    """One rank's local experts through the gmm kernel against the plain
+    gmm, product by product (gate, up, down on the same inputs), by the
+    bf16 gmm hold: one bf16 ulp of the largest |out|. Taken ``chunk``
+    experts at a time: the plain gmm's f32 copy of all 192 experts' weights
+    alone would be 10.5 GiB a rank."""
+    cd = torch.bfloat16
+    errs, peaks = [0.0] * 3, [0.0] * 3
+    for e0 in range(0, xe.shape[0], chunk):
+        sl = slice(e0, e0 + chunk)
+        rows, outs = xe[sl], []
+        for i, name in enumerate(("wi_gate", "wi_up", "wo")):
+            if name == "wo":
+                rows = (_ACTS[cfg.act](outs[0].float())
+                        * outs[1].float()).to(cd)
+            w = p[name][sl].to(cd)
+            got = gmm_ops.gmm(rows, w, impl="kernel", live=live[sl])
+            want = gmm_reference(rows, w)
+            torch.cuda.synchronize()
+            check(bool(torch.isfinite(got).all()),
+                  f"EP gmm {name}: non-finite output")
+            errs[i] = max(errs[i], (got.float() - want.float()).abs().max()
+                          .item())
+            peaks[i] = max(peaks[i], want.float().abs().max().item())
+            outs.append(want)
+    for name, err, peak in zip(("gate", "up", "down"), errs, peaks):
+        tol = 2.0 ** (math.floor(math.log2(peak)) - 7)     # bf16_ulp
+        check(err <= tol, f"EP gmm {name} {tuple(xe.shape)}: max abs err "
+              f"{err} > {tol}")
+    return errs
+
+
+def ep_rank(rank: int, world: int, payload, device) -> dict:
+    """Phase 38 on one rank: the f32 EP layer at reduced widths, then
+    kimi-k2's EP prefill at published widths with its holds and counts."""
+    mesh = make_mesh(EP_MESH, ("data", "model"), device)
+    out = {}
+    rcfg = get_config(KIMI_ARCH, reduced=True).replace(
+        param_dtype="float32", compute_dtype="float32", moe_impl="ep_a2a",
+        capacity_factor=8.0)
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 38)
+    p = {k: v[0] for k, v in lm_api.init_params(rcfg, gen, DEV)[
+        "stack"]["uniform"]["ffn"].items()}
+    x = torch.randn(*EP_REDUCED_SHAPE, rcfg.d_model, generator=gen,
+                    device=DEV)
+    mods = zero_launches()
+    with axisenv.activation_axes(**ep_env(mesh)):
+        y, aux = lm_moe.moe_ffn(p, x, rcfg)
+    y_ref, aux_ref = lm_moe.moe_dropping(p, x, rcfg)
+    out["f32_err"] = (y - y_ref).abs().max().item()
+    out["f32_aux"] = (float(aux), float(aux_ref))
+    check(out["f32_err"] <= EP_F32_TOL and mods["moe_gmm"].LAUNCHES == 3,
+          f"rank {rank}: f32 EP layer against moe_dropping, max abs err "
+          f"{out['f32_err']}, {mods['moe_gmm'].LAUNCHES} gmm launches")
+    del p, x, y, y_ref
+
+    cfg = get_config(KIMI_ARCH).replace(num_layers=EP_LAYERS,
+                                        attn_impl="kernel", moe_impl="ep_a2a")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = sharded.init_ep_params(cfg, mesh, SEED + 38, DEV)
+    torch.cuda.synchronize()
+    out["draw_s"] = time.perf_counter() - t0
+    rng = np.random.default_rng(SEED + 38)
+    tokens = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, size=(SERVE_BATCH, SERVE_PROMPT),
+        dtype=np.int64)).to(DEV)
+    calls, groups = [], []
+    ffn, pos = moe_ep.local_expert_ffn, moe_ep._positions_in_group
+
+    def record_ffn(p, xe, cfg, live):
+        calls.append((p, xe, live))
+        return ffn(p, xe, cfg, live)
+
+    def record_pos(ids, n, cap):
+        got = pos(ids, n, cap)
+        groups.append((ids, n, got[1]))
+        return got
+
+    moe_ep.local_expert_ffn, moe_ep._positions_in_group = record_ffn, record_pos
+    mods = zero_launches()
+    try:
+        with axisenv.activation_axes(**ep_env(mesh)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, _ = lm_api.prefill(params, cfg, {"tokens": tokens})
+            torch.cuda.synchronize()
+            out["prefill_ms"] = (time.perf_counter() - t0) * 1e3
+    finally:
+        moe_ep.local_expert_ffn, moe_ep._positions_in_group = ffn, pos
+    out["launches"] = launch_counts(mods)
+    check(tuple(logits.shape) == (SERVE_BATCH, cfg.vocab_size)
+          and bool(torch.isfinite(logits).all()),
+          f"rank {rank}: EP prefill logits {tuple(logits.shape)}")
+    # the send lanes' drops, then the local experts' (rows of other ranks'
+    # lanes that hold no assignment have group E_loc and are not dropped)
+    (ids, _, keep), (eids, n, ekeep) = groups
+    dropped = int((~keep).sum()) + int(((eids < n - 1) & ~ekeep).sum())
+    out["assignments"] = ids.numel()
+    out["dropped_share"] = dropped / ids.numel()
+    (p, xe, live), = calls
+    out["ep_shape"] = [int(xe.shape[0]), int(xe.shape[1]),
+                       cfg.d_model, cfg.d_ff]
+    out["live_experts"] = int(live.sum())
+    del calls, groups, logits
+    torch.cuda.empty_cache()
+    out["gmm_errs"] = hold_ep_gmm(p, xe, live, cfg)
+    del p, xe
+    torch.cuda.empty_cache()
+
+    # the EP layer alone at the prefill shape, and its all-to-alls
+    layer = {k: v[0] for k, v in params["stack"]["uniform"]["ffn"].items()}
+    xb = torch.randn(SERVE_BATCH, SERVE_PROMPT, cfg.d_model, generator=gen,
+                     device=DEV).to(torch.bfloat16)
+    a2a_ms, layer_ms = [], []
+    a2a = moe_ep._all_to_all
+
+    def timed_a2a(t, group, grad):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = a2a(t, group, grad)
+        torch.cuda.synchronize()
+        a2a_ms.append((time.perf_counter() - t0) * 1e3)
+        return r
+
+    moe_ep._all_to_all = timed_a2a
+    try:
+        for _ in range(3):
+            a2a_ms.clear()
+            with axisenv.activation_axes(**ep_env(mesh)):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                lm_moe.moe_ffn(layer, xb, cfg)
+                torch.cuda.synchronize()
+            layer_ms.append((time.perf_counter() - t0) * 1e3)
+    finally:
+        moe_ep._all_to_all = a2a
+    out["layer_ms"] = float(np.median(layer_ms))
+    out["a2a_share"] = sum(a2a_ms) / layer_ms[-1]
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    return out
+
+
+def phase_ep() -> dict:
+    cfg = get_config(KIMI_ARCH)
+    tp = EP_MESH[1]
+    C_send, C_e = moe_ep.capacities(cfg, SERVE_BATCH, SERVE_PROMPT, tp, 1)
+    log(f"phase 38: {KIMI_ARCH} expert-parallel (moe_impl='ep_a2a') on a "
+        f"{EP_MESH} mesh of {tp} spawned ranks sharing the card over gloo: "
+        f"{cfg.num_experts // tp} experts a rank, prefill {SERVE_BATCH} x "
+        f"{SERVE_PROMPT} bf16 at {EP_LAYERS} layer, C_send {C_send}, C_e "
+        f"{C_e}")
+    t0 = time.perf_counter()
+    ranks = sharded.run_world(ep_rank, tp, None, device="cuda",
+                              timeout_s=900)
+    wall = time.perf_counter() - t0
+    for r, o in enumerate(ranks):
+        check(o["launches"]["moe_gmm"] == 3 * EP_LAYERS
+              and o["launches"]["flash_attention"] == EP_LAYERS
+              and not any(v for k, v in o["launches"].items()
+                          if k not in ("moe_gmm", "flash_attention")),
+              f"rank {r}: EP prefill launches {o['launches']}")
+        check(o["ep_shape"] == [cfg.num_experts // tp, C_e, cfg.d_model,
+                                cfg.d_ff], f"rank {r}: EP gmm shape "
+              f"{o['ep_shape']}")
+        log(f"  rank {r}: f32 EP layer (reduced, cf 8) against moe_dropping "
+            f"max abs err {o['f32_err']:.3e}, aux {o['f32_aux'][0]:.6f} "
+            f"(single process {o['f32_aux'][1]:.6f}); {o['draw_s']:.1f} s to "
+            f"draw its weights; prefill {o['prefill_ms']:.1f} ms; launches "
+            f"{o['launches']}; gmm at {tuple(o['ep_shape'])} ({o['live_experts']}"
+            f" live) against the plain gmm, max abs err gate/up/down "
+            f"{', '.join(f'{e:.3e}' for e in o['gmm_errs'])}; dropped "
+            f"{o['dropped_share']:.4f} of {o['assignments']} assignments; EP "
+            f"layer {o['layer_ms']:.1f} ms, all-to-alls {o['a2a_share']:.3f} "
+            f"of it; peak {o['peak_gib']:.2f} GiB")
+    log(f"  phase 38: {wall:.1f} s in all")
+    torch.cuda.empty_cache()
+    case = tuple(ranks[0]["ep_shape"])
+    timing = time_gmm(case, SEED + 50)
+    torch.cuda.empty_cache()
+    timing_down = time_gmm((case[0], case[1], case[3], case[2]), SEED + 51)
+    torch.cuda.empty_cache()
+    return {"gmm": {**timing, "down": timing_down,
+                    "launches_per_rank": [o["launches"]["moe_gmm"]
+                                          for o in ranks],
+                    "max_abs_err": max(max(o["gmm_errs"]) for o in ranks)},
+            "launches": {"moe_gmm": sum(o["launches"]["moe_gmm"]
+                                        for o in ranks),
+                         "flash_attention": sum(
+                             o["launches"]["flash_attention"] for o in ranks)},
+            "summary": {"layer_ms": [o["layer_ms"] for o in ranks],
+                        "a2a_share": [o["a2a_share"] for o in ranks],
+                        "dropped_share": [o["dropped_share"] for o in ranks],
+                        "peak_gib": [o["peak_gib"] for o in ranks],
+                        "prefill_ms": [o["prefill_ms"] for o in ranks],
+                        "wall_s": wall}}
+
+
+def sharded_train_rank(rank: int, world: int, payload, device) -> dict:
+    """Phase 39 on one rank: each mode's sharded steps, each from the
+    single-process state before it; rank 0 holds them."""
+    mesh = make_mesh(EP_MESH, ("data", "model"), device)
+    cfg = train_cut("float32")
+    tc = TrainConfig(warmup_steps=0)
+    B, S = TRAIN_SHAPE
+    shape = ShapeConfig("train", "train", S, B)
+    out = {}
+    for mode in SHARDED_MODES:
+        sc = ShardingConfig(mode=mode, zero=1)
+        ref = train_steps.init_state(
+            cfg, torch.Generator(device=DEV).manual_seed(SEED + 39), DEV)
+        ref_step = train_steps.make_train_step(cfg, tc)
+        prog, _ = train_steps.build_program(cfg, shape, mesh, tc=tc, sc=sc)
+        specs = train_steps.state_shardings(cfg, mesh, sc)
+        bspecs = train_steps.input_shardings(cfg, shape, mesh, mode)["batch"]
+        rng = np.random.default_rng(SEED + 39)
+        ms, worst = [], []
+        for t in range(1, TRAIN_STEPS + 1):
+            toks = rng.integers(0, cfg.vocab_size, size=(B, S + 1),
+                                dtype=np.int32)
+            batch = {"tokens": torch.from_numpy(toks[:, :-1]).to(DEV),
+                     "labels": torch.from_numpy(toks[:, 1:]).to(DEV)}
+            dstate = train_steps.shard_tree(ref, specs, mesh)
+            dbatch = train_steps.shard_tree(batch, bspecs, mesh)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            dstate, dm = prog(dstate, dbatch)
+            dm = {k: float(whole(v)) for k, v in dm.items()}
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            placed = (sharded.placements_match(dstate["params"],
+                                                specs["params"], mesh)
+                      and sharded.placements_match(dstate["opt"].m,
+                                                    specs["opt"].m, mesh))
+            check(placed, f"{mode} step {t}: a placement is not its spec")
+            got = train_steps.full_tree(dstate)
+            del dstate
+            ref, rm = ref_step(ref, batch)
+            if rank == 0:
+                for name, want in rm.items():
+                    w = float(want)
+                    check(abs(dm[name] - w) <= SHARDED_METRIC_TOL * max(
+                        abs(w), 1e-30), f"{mode} step {t} metric {name}: "
+                          f"sharded {dm[name]}, single process {w}")
+                worst.append(hold_train_state(
+                    dict(tree_flatten_with_paths(got)),
+                    dict(tree_flatten_with_paths(ref)), t, float(rm["lr"]),
+                    tc))
+            del got
+        out[mode] = {"ms": ms, "worst": worst,
+                     "loss": float(rm["loss"]),
+                     "grad_norm": float(rm["grad_norm"])}
+        del ref
+        torch.cuda.empty_cache()
+    out["staged"] = dict(comm.STAGED)
+    return out
+
+
+def phase_sharded_train() -> dict:
+    B, S = TRAIN_SHAPE
+    log(f"phase 39: the sharded train step (build_program) of {LM_ARCH} at "
+        f"published widths cut to {TRAIN_CUT} layers, f32, B={B}, S={S}, on "
+        f"the {EP_MESH} mesh of 2 ranks sharing the card over gloo, modes "
+        f"{', '.join(SHARDED_MODES)} (ZeRO-1): {TRAIN_STEPS} steps each, "
+        "each from the single-process state before it")
+    t0 = time.perf_counter()
+    ranks = sharded.run_world(sharded_train_rank, EP_MESH[1], None,
+                              device="cuda", timeout_s=900)
+    out = {}
+    for mode in SHARDED_MODES:
+        o = ranks[0][mode]
+        for t, (wm, wp, n_adam) in enumerate(o["worst"], 1):
+            log(f"  {mode} step {t}: {o['ms'][t - 1]:.1f} ms a sharded step "
+                f"(rank 0); m and v within {wm:.3e} of their scale, params "
+                f"{wp:.3e} ({n_adam} beyond it by Adam's step)")
+        out[mode] = {"ms_per_step": float(np.median(o["ms"])),
+                     "ms": o["ms"], "ms_rank1": ranks[1][mode]["ms"]}
+    log(f"  host-staged collectives on rank 0: {ranks[0]['staged']}; "
+        f"{time.perf_counter() - t0:.1f} s in all")
+    out["staged"] = ranks[0]["staged"]
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_train_archs() -> dict:
+    out = {}
+    for n, (arch, kw) in enumerate(((GEMMA_ARCH, GEMMA_TRAIN),
+                                    (VLM_ARCH, VLM_TRAIN))):
+        kw = dict(kw)
+        layers = kw.pop("num_layers", None)
+        cfg = get_config(arch)
+        if layers:
+            cfg = cfg.replace(num_layers=layers)
+        log(f"phase 40.{n + 1}: train {arch} at published widths"
+            f"{f' cut to {layers} layer(s)' if layers else ''} "
+            f"({cfg.num_layers} layers, {param_count(cfg) / 1e9:.3f} G "
+            f"parameters) in bf16, remat {cfg.remat!r}: batch {kw['batch']} "
+            f"x {kw['seq']} as {kw['microbatches']} microbatches, "
+            f"{kw['steps_total']} steps")
+        mods = zero_launches()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        step_ms = []
+        t0 = time.perf_counter()
+        state, losses = train_lm(arch, reduced=False, log_every=2,
+                                 device=DEV,
+                                 print_fn=lambda msg: log("  " + msg),
+                                 step_ms=step_ms, num_layers=layers, **kw)
+        wall = time.perf_counter() - t0
+        launches = launch_counts(mods)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        check(not any(launches.values()),
+              f"kernel launches in training: {launches}")
+        # a few steps at lr 3e-4 from random weights need not lower the loss
+        # (gemma2's softcapped logits start near the cap): held are the
+        # losses' finiteness and the optimizer's step count
+        check(all(math.isfinite(x) for x in losses), f"losses {losses}")
+        check(int(state["opt"].step) == kw["steps_total"],
+              f"{arch}: {int(state['opt'].step)} optimizer steps")
+        del state
+        tokens = kw["batch"] * kw["seq"]
+        ms = float(np.median(step_ms[2:]))
+        flops = model_flops_per_token(cfg, kw["seq"], training=True) * tokens
+        tflops = flops / ms / 1e9
+        out[arch] = {"ms_per_step": ms, "tokens_per_s": tokens / ms * 1e3,
+                     "model_tflops": tflops,
+                     "mfu": tflops * 1e12 / BF16_FLOP_PER_S,
+                     "peak_gib": peak, "loss_first": losses[0],
+                     "loss_last": losses[-1], "first_step_ms": step_ms[0],
+                     "num_layers": cfg.num_layers}
+        log(f"  {ms:.1f} ms a step (median of steps 3-{len(step_ms)}; the "
+            f"first {step_ms[0]:.1f}), {out[arch]['tokens_per_s']:.0f} "
+            f"tokens/s, {tflops:.1f} model TFLOP/s, mfu "
+            f"{out[arch]['mfu']:.4f}, peak device memory {peak:.2f} GiB; loss "
+            f"{losses[0]:.4f} -> {losses[-1]:.4f}; {wall:.1f} s in all")
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> None:
     if sys.argv[1:2] == ["--fabric"]:
         fabric_main(sys.argv[2])
@@ -2975,6 +3356,15 @@ def main() -> None:
     del kimi
     torch.cuda.empty_cache()
     fabric = phase_fabric(lm["timing"])
+    torch.cuda.empty_cache()
+    ep = phase_ep()
+    gmm["kimi_k2_ep"] = ep["gmm"]
+    gmm_paths[f"{KIMI_ARCH} EP prefill, {EP_MESH[1]} ranks"] = {
+        "launches": ep["launches"]["moe_gmm"]}
+    paths[f"{KIMI_ARCH} EP prefill, {EP_MESH[1]} ranks"] = {
+        "launches": ep["launches"]["flash_attention"]}
+    sharded_train = phase_sharded_train()
+    train_archs = phase_train_archs()
     paths["fabric shard, " + LM_ARCH] = fabric["flash"]
     kernel["launches_by_path"]["pool worker re-score"] = \
         fabric["mpnn_mp"]["launches"]
@@ -2990,6 +3380,9 @@ def main() -> None:
     log(card)
     log(f"train: {json.dumps(train)}")
     log(f"fabric: {json.dumps(fabric['summary'])}")
+    log(f"ep: {json.dumps(ep['summary'])}")
+    log(f"sharded train: {json.dumps(sharded_train)}")
+    log(f"train archs: {json.dumps(train_archs)}")
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     log(json.dumps({"kernels": [{
         "name": "mpnn_mp", "route": "cuda",

@@ -6,10 +6,11 @@ defaults included) and of its ``get_config``. Each ported arch has a module
 ``reduced()`` (a tiny same-family config for CPU tests), copied from the JAX
 package. The port runs all ten archs of the JAX package's registry.
 
-``ShardingConfig``, ``TrainConfig``, ``param_count``, ``active_param_count``
-and ``model_flops_per_token`` are copies of the JAX package's too. On one
-device only ``ShardingConfig.microbatches`` acts, as in the JAX package on
-a one-device mesh.
+``ShapeConfig``, ``ShardingConfig``, ``TrainConfig``, ``param_count``,
+``active_param_count`` and ``model_flops_per_token`` are copies of the JAX
+package's too. On one device only ``ShardingConfig.microbatches`` acts, as
+in the JAX package on a one-device mesh; on a mesh
+(``launch/steps.build_program``) ``mode`` and ``zero`` act too.
 """
 from __future__ import annotations
 
@@ -102,6 +103,14 @@ class ModelConfig:
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    kind: str          # train | prefill | decode
+    seq_len: int
+    global_batch: int
 
 
 @dataclass(frozen=True)

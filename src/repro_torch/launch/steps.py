@@ -1,5 +1,5 @@
-"""The train state and the train step on one device: the port of
-``init_state`` and ``make_train_step`` of ``repro/launch/steps.py``.
+"""The train state, the train step, and the sharded train program: the
+port of ``repro/launch/steps.py``.
 
     state = init_state(cfg, generator, device)   # {"params", "opt"}
     step = make_train_step(cfg, tc, sc)
@@ -14,6 +14,18 @@ non-finite guard, global-norm clipping, the schedule at the step before the
 increment, and AdamW. The state is updated IN PLACE and returned, where the
 JAX package's jitted step donates it. Metrics are 0-d f32 tensors on the
 state's device: loss, ce, aux, tokens, grad_norm, lr, skipped.
+
+On a mesh (a torch ``DeviceMesh`` over the ranks of a process group)
+``build_program(cfg, shape, mesh, tc=, sc=)`` gives the step every rank
+runs: the params are DTensors placed by ``state_shardings`` (their
+``tree_specs``, and the AdamW moments ``zero_spec`` under ZeRO-1), the batch
+is sharded by ``batch_axes``, and the same plain model and AdamW code runs
+on them, with the axis environment installed so that the model's
+``axisenv.constrain`` points pin activations as the JAX program's
+``with_sharding_constraint`` does. DTensor's sharding propagation plays
+GSPMD's part; every gradient is brought to its parameter's placement.
+``shard_tree`` and ``full_tree`` move trees between whole tensors and
+DTensors. Only the ``"train"`` kind is built.
 """
 from __future__ import annotations
 
@@ -22,7 +34,9 @@ from typing import Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig, ShardingConfig, TrainConfig
-from repro_torch.models import api
+from repro_torch.distributed import axisenv
+from repro_torch.distributed import sharding as shd
+from repro_torch.models import api, layers
 from repro_torch.optim import adamw, clip, schedules
 from repro_torch.utils.trees import tree_leaves, tree_map, tree_unflatten
 
@@ -45,6 +59,11 @@ def _grads_of(params, cfg, batch):
         grads = torch.autograd.grad(loss, live, allow_unused=True,
                                     materialize_grads=True)
     metrics = {k: v.detach().float() for k, v in {**metrics, "loss": loss}.items()}
+    # on a mesh: each gradient takes its parameter's placement (a replicated
+    # parameter's partial sums over the data ranks are reduced here)
+    grads = [g.redistribute(p.device_mesh, p.placements)
+             if hasattr(g, "device_mesh") else g
+             for g, p in zip(grads, leaves)]
     return tree_unflatten(params, grads), metrics
 
 
@@ -98,3 +117,190 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig,
         return state, metrics
 
     return train_step
+
+
+# ---------------------------------------------------------------------------
+# The sharded program
+# ---------------------------------------------------------------------------
+
+
+def _with_axisenv(fn, mesh, global_batch, mode="dp_tp"):
+    """Wrap a step fn so that the model's sharding constraints resolve
+    while it runs; plain tensors the step makes (positions, masks) count as
+    replicated on the mesh."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    sizes = shd.axis_sizes(mesh)
+    bax = shd.batch_axes(mesh, global_batch, mode)
+    # in dp_only mode no tensor axis lives on "model"
+    model = "model" if "model" in sizes and mode != "dp_only" else None
+
+    def wrapped(*args):
+        with axisenv.activation_axes(batch=bax,
+                                     batch_sizes=[sizes[a] for a in bax],
+                                     model=model,
+                                     model_size=sizes.get("model", 1),
+                                     mesh=mesh), implicit_replication():
+            return fn(*args)
+    return wrapped
+
+
+_KV_AXES = {"k": ("layer", "batch", "seq", "kv_heads", "head_dim"),
+            "v": ("layer", "batch", "seq", "kv_heads", "head_dim")}
+
+
+def cache_axes(cfg: ModelConfig):
+    """Logical axes of every cache leaf (mirrors ``api.init_cache``)."""
+    if cfg.is_encdec:
+        return {"self": dict(_KV_AXES), "cross": dict(_KV_AXES)}
+    if cfg.rwkv:
+        return {
+            "tm_shift": ("layer", "batch", "seq", "embed"),
+            "cm_shift": ("layer", "batch", "seq", "embed"),
+            "state": ("layer", "batch", "heads", "head_dim", "head_dim2"),
+        }
+    if cfg.family == "hybrid":
+        return {
+            "mamba": {
+                "conv": ("layer", "batch", "conv", "ssm_inner"),
+                "ssm": ("layer", "batch", "ssm_heads", "head_dim", "state"),
+            },
+            "attn": dict(_KV_AXES),
+        }
+    return dict(_KV_AXES)
+
+
+def batch_specs(cfg: ModelConfig, B: int, S: int, *, with_labels: bool):
+    """(shape, dtype) of every model input of a full-sequence program."""
+    cd = layers.dtype_of(cfg.compute_dtype)
+    out = {}
+    if cfg.family == "vlm":
+        out["embeds"] = ((B, S, cfg.d_model), cd)
+        out["positions"] = ((3, B, S), torch.int32)
+    else:
+        out["tokens"] = ((B, S), torch.int32)
+    if cfg.is_encdec:
+        out["frames"] = ((B, S, cfg.d_model), cd)
+    if with_labels:
+        out["labels"] = ((B, S), torch.int32)
+    return out
+
+
+def input_specs(cfg: ModelConfig, shape):
+    """(shape, dtype) of every program input of this cell (nothing is
+    allocated: a decode cache is laid out on the meta device)."""
+    B, S = shape.global_batch, shape.seq_len
+    if shape.kind == "train":
+        return {"batch": batch_specs(cfg, B, S, with_labels=True)}
+    if shape.kind == "prefill":
+        return {"batch": batch_specs(cfg, B, S, with_labels=False)}
+    if shape.kind == "decode":
+        cache = tree_map(lambda t: (tuple(t.shape), t.dtype),
+                         api.init_cache(cfg, B, S, enc_len=S, device="meta"))
+        return {"cache": cache, "tokens": ((B, 1), torch.int32),
+                "cur_len": ((), torch.int32)}
+    raise ValueError(shape.kind)
+
+
+def _batch_input_specs(specs, mesh, global_batch, mode="dp_tp"):
+    bax = shd.batch_axes(mesh, global_batch, mode)
+    lead = bax if bax else None
+
+    def spec_of(name, s):
+        if name == "positions":
+            return shd.P(None, lead, None)
+        return shd.P(lead, *([None] * (len(s[0]) - 1)))
+
+    return {name: spec_of(name, s) for name, s in specs.items()}
+
+
+def input_shardings(cfg: ModelConfig, shape, mesh, mode: str = "dp_tp"):
+    """The spec of every program input (``sharding.placements`` turns one
+    into DTensor placements)."""
+    specs = input_specs(cfg, shape)
+    if shape.kind in ("train", "prefill"):
+        return {"batch": _batch_input_specs(specs["batch"], mesh,
+                                            shape.global_batch, mode)}
+    bax = shd.batch_axes(mesh, shape.global_batch, mode)
+    lead = bax if bax else None
+    return {
+        "cache": _map_axes(lambda ax, s: shd.cache_spec(
+            ax, s[0], mesh, shape.global_batch),
+            cache_axes(cfg), specs["cache"]),
+        "tokens": shd.P(lead, None),
+        "cur_len": shd.P(),
+    }
+
+
+def _map_axes(fn, axes_tree, other):
+    """fn over the leaves of two trees of nested dicts (a tuple is a
+    leaf)."""
+    if isinstance(axes_tree, dict):
+        return {k: _map_axes(fn, axes_tree[k], other[k]) for k in axes_tree}
+    return fn(axes_tree, other)
+
+
+def abstract_state(cfg: ModelConfig):
+    """(shape, dtype) of every leaf of the train state."""
+    params = api.abstract_params(cfg)
+    f32 = _map_axes(lambda s, _: (s[0], torch.float32), params, params)
+    return {"params": params,
+            "opt": adamw.AdamWState(step=((), torch.int32), m=f32, v=f32)}
+
+
+def state_shardings(cfg: ModelConfig, mesh,
+                    sc: Optional[ShardingConfig] = None):
+    """The spec of every leaf of the train state: the params' resolved
+    ``tree_specs``, and under ZeRO-1 (``sc.zero >= 1``) the AdamW moments
+    sharded over "data" by ``zero_spec``."""
+    sc = sc or ShardingConfig()
+    abs_params = api.abstract_params(cfg)
+    pspecs = shd.tree_specs(api.param_specs(cfg), abs_params, mesh, sc.mode)
+    mspecs = _map_axes(
+        lambda ps, ap: shd.zero_spec(ps, ap[0], mesh) if sc.zero >= 1 else ps,
+        pspecs, abs_params)
+    return {"params": pspecs,
+            "opt": adamw.AdamWState(step=shd.P(), m=mspecs, v=mspecs)}
+
+
+def shard_tree(tree, specs, mesh):
+    """DTensors of whole tensors that every rank holds alike: each rank
+    keeps a copy of its own shard of ``specs``' placements (no
+    communication; the whole tensors are left as they were)."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+
+    if isinstance(tree, dict):
+        return {k: shard_tree(tree[k], specs[k], mesh) for k in tree}
+    if isinstance(tree, adamw.AdamWState):
+        return adamw.AdamWState(*(shard_tree(t, s, mesh)
+                                  for t, s in zip(tree, specs)))
+    pl = shd.placements(specs, mesh)
+    d = distribute_tensor(tree, mesh, pl, src_data_rank=None)
+    return DTensor.from_local(d.to_local().clone(), mesh, pl, run_check=False,
+                              shape=d.shape, stride=d.stride())
+
+
+def full_tree(tree):
+    """Whole tensors of a tree of DTensors (gathered on every rank)."""
+    return tree_map(lambda t: t.full_tensor() if hasattr(t, "full_tensor")
+                    else t, tree)
+
+
+def build_program(cfg: ModelConfig, shape, mesh, *,
+                  tc: Optional[TrainConfig] = None,
+                  sc: Optional[ShardingConfig] = None):
+    """Returns (step, example args as (shape, dtype) trees) for a
+    ``"train"`` cell: ``step(state, batch)`` runs on every rank of
+    ``mesh``, on the DTensors of ``shard_tree(state, state_shardings(...))``
+    and ``shard_tree(batch, input_shardings(...)["batch"])``, and updates
+    the state in place as ``make_train_step`` does."""
+    tc = tc or TrainConfig()
+    sc = sc or ShardingConfig()
+    specs = input_specs(cfg, shape)
+    if shape.kind == "train":
+        fn = _with_axisenv(make_train_step(cfg, tc, sc), mesh,
+                           shape.global_batch, sc.mode)
+        return fn, (abstract_state(cfg), specs["batch"])
+    raise NotImplementedError(
+        f"the sharded {shape.kind!r} program is not ported yet; only "
+        "'train' is built")

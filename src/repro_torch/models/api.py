@@ -4,6 +4,7 @@ gemma2 local/global stack, the MoE stack, the zamba2 hybrid stack, the RWKV6
 stack and the enc-dec stack).
 
     params = init_params(cfg, generator, device)   # nested dict of tensors
+    specs = param_specs(cfg)                       # logical axes, same tree
     logits, aux = forward(params, cfg, batch)      # full sequence
     logits, cache = prefill(params, cfg, batch)    # last-position logits
     logits, cache = decode_step(params, cfg, cache, tokens, cur_len)
@@ -30,10 +31,10 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import encdec, transformer
-from repro_torch.models.layers import (InitMaker, dtype_of, embed,
-                                       embedding_params, rmsnorm,
-                                       rmsnorm_params, softmax_cross_entropy,
-                                       unembed)
+from repro_torch.models.layers import (InitMaker, ShapeMaker, SpecMaker,
+                                       dtype_of, embed, embedding_params,
+                                       rmsnorm, rmsnorm_params,
+                                       softmax_cross_entropy, unembed)
 
 
 def model_params(mk, cfg: ModelConfig):
@@ -54,6 +55,16 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
         generator = torch.Generator(device=device).manual_seed(0)
     mk = InitMaker(generator, dtype_of(cfg.param_dtype), device)
     return model_params(mk, cfg)
+
+
+def abstract_params(cfg: ModelConfig):
+    """The (shape, dtype) of every parameter, allocating nothing."""
+    return model_params(ShapeMaker(dtype_of(cfg.param_dtype)), cfg)
+
+
+def param_specs(cfg: ModelConfig):
+    """The logical-axis tuple of every parameter (the same tree)."""
+    return model_params(SpecMaker(), cfg)
 
 
 def _embed_input(params, cfg, batch):

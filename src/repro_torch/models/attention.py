@@ -26,7 +26,8 @@ from typing import Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.layers import apply_rope, dtype_of, rmsnorm_head
+from repro_torch.distributed import axisenv
+from repro_torch.models.layers import _lead, apply_rope, dtype_of, rmsnorm_head
 
 NEG_INF = -1e30
 
@@ -36,15 +37,22 @@ def attention_params(mk, cfg: ModelConfig, stacked=(), cross: bool = False):
     module has no qk-norm)."""
     d, hd = cfg.d_model, cfg.resolved_head_dim
     nh, nkv = cfg.num_heads, cfg.num_kv_heads
+    lead = _lead(stacked)
     p = {
-        "wq": mk.param(stacked + (d, nh, hd), fan_in=d),
-        "wk": mk.param(stacked + (d, nkv, hd), fan_in=d),
-        "wv": mk.param(stacked + (d, nkv, hd), fan_in=d),
-        "wo": mk.param(stacked + (nh, hd, d), fan_in=nh * hd),
+        "wq": mk.param(stacked + (d, nh, hd),
+                       lead + ("embed", "heads", "head_dim"), fan_in=d),
+        "wk": mk.param(stacked + (d, nkv, hd),
+                       lead + ("embed", "kv_heads", "head_dim"), fan_in=d),
+        "wv": mk.param(stacked + (d, nkv, hd),
+                       lead + ("embed", "kv_heads", "head_dim"), fan_in=d),
+        "wo": mk.param(stacked + (nh, hd, d),
+                       lead + ("heads", "head_dim", "embed"), fan_in=nh * hd),
     }
     if cfg.qk_norm and not cross:
-        p["q_norm"] = mk.param(stacked + (hd,), init="ones")
-        p["k_norm"] = mk.param(stacked + (hd,), init="ones")
+        p["q_norm"] = mk.param(stacked + (hd,), lead + ("head_dim",),
+                               init="ones")
+        p["k_norm"] = mk.param(stacked + (hd,), lead + ("head_dim",),
+                               init="ones")
     return p
 
 
@@ -98,10 +106,32 @@ def mha_reference(q, k, v, *, causal: bool = True,
 
     def kv_chunk(t, k0, k1):
         c = t[:, k0:k1]
-        return c.repeat_interleave(G, dim=2) if G > 1 else c  # (B,ck,H,hd)
+        if G == 1:
+            return c                                          # (B,ck,H,hd)
+        # on a mesh: the repeated heads take q's layout (KV heads too few
+        # to shard are repeated whole, and the repeat's backward cannot
+        # fold a sharded head axis back into (KVH, G))
+        return axisenv.constrain(c.repeat_interleave(G, dim=2),
+                                 "batch", None, "model", None)
+
+    # the einsums flatten (B, heads) into one batch axis; on a mesh whose
+    # heads alone are sharded, heads lead it (and the result is transposed
+    # back): DTensor folds a flattened axis back only when its sharded part
+    # leads. The products are the same either way.
+    pl = getattr(qf, "placements", ())
+    heads_lead = (any(p.is_shard(2) for p in pl)
+                  and not any(p.is_shard(0) for p in pl))
+
+    def pv(p, vc):
+        if heads_lead:
+            return torch.einsum("bhij,bjhd->hbid", p, vc).permute(1, 2, 0, 3)
+        return torch.einsum("bhij,bjhd->bihd", p, vc)
 
     def scores(qc, kc, qpos, kpos):
-        s = torch.einsum("bihd,bjhd->bhij", qc, kc)
+        if heads_lead:
+            s = torch.einsum("bihd,bjhd->hbij", qc, kc).transpose(0, 1)
+        else:
+            s = torch.einsum("bihd,bjhd->bhij", qc, kc)
         if softcap is not None:
             s = softcap * torch.tanh(s / softcap)
         return torch.where(_mask(qpos, kpos, causal, window, valid_len),
@@ -111,8 +141,7 @@ def mha_reference(q, k, v, *, causal: bool = True,
     if Sq <= 8:
         qpos = torch.arange(Sq, device=dev) + q_offset
         p = torch.softmax(scores(qf, kv_chunk(kf, 0, Sk), qpos, kpos_all), -1)
-        o = torch.einsum("bhij,bjhd->bihd", p, kv_chunk(vf, 0, Sk))
-        return o.to(q.dtype)
+        return pv(p, kv_chunk(vf, 0, Sk)).to(q.dtype)
 
     cq, ck = min(chunk_q, Sq), min(chunk_k, Sk)
     assert Sq % cq == 0 and Sk % ck == 0, "seq must divide chunk sizes"
@@ -136,7 +165,7 @@ def mha_reference(q, k, v, *, causal: bool = True,
             corr = torch.exp(m - m_new)
             l = l * corr + p.sum(-1)
             acc = (acc * corr.transpose(1, 2)[..., None]
-                   + torch.einsum("bhij,bjhd->bihd", p, kv_chunk(vf, k0, k1)))
+                   + pv(p, kv_chunk(vf, k0, k1)))
             m = m_new
         out_chunks.append(acc / l.transpose(1, 2).clamp_min(1e-30)[..., None])
     return torch.cat(out_chunks, dim=1).to(q.dtype)
@@ -177,6 +206,9 @@ def project_qkv(params, x, cfg: ModelConfig, cos=None, sin=None):
     q = _proj(x, params["wq"].to(cd))
     k = _proj(x, params["wk"].to(cd))
     v = _proj(x, params["wv"].to(cd))
+    q = axisenv.constrain(q, "batch", None, "model", None)
+    k = axisenv.constrain(k, "batch", None, "kv", None)
+    v = axisenv.constrain(v, "batch", None, "kv", None)
     if "q_norm" in params:
         q = rmsnorm_head(params["q_norm"], q, cfg.norm_eps)
         k = rmsnorm_head(params["k_norm"], k, cfg.norm_eps)
@@ -189,7 +221,10 @@ def project_qkv(params, x, cfg: ModelConfig, cos=None, sin=None):
 def output_proj(params, o, cfg: ModelConfig):
     H, hd, D = params["wo"].shape
     w = params["wo"].to(dtype_of(cfg.compute_dtype)).reshape(H * hd, D)
-    return o.reshape(*o.shape[:2], H * hd) @ w
+    o = axisenv.constrain(o, "batch", None, "model", None)
+    out = o.reshape(*o.shape[:2], H * hd) @ w
+    return axisenv.constrain(out, "batch",
+                             "seq" if cfg.seq_parallel else None, None)
 
 
 def self_attention(params, x, cfg: ModelConfig, *, cos, sin, causal=True,
@@ -207,7 +242,9 @@ def self_attention(params, x, cfg: ModelConfig, *, cos, sin, causal=True,
     start = int(cur_len)
     cache["k"][:, start:start + x.shape[1]] = k_new
     cache["v"][:, start:start + x.shape[1]] = v_new
-    o = attend(q, cache["k"], cache["v"], cfg=cfg, causal=True,
+    k = axisenv.constrain(cache["k"], "batch", None, "kv", None)
+    v = axisenv.constrain(cache["v"], "batch", None, "kv", None)
+    o = attend(q, k, v, cfg=cfg, causal=True,
                window=window, q_offset=cur_len,
                valid_len=start + x.shape[1])
     return output_proj(params, o, cfg), cache

@@ -2,9 +2,11 @@
 norms, RoPE, the embedding and the token-level cross-entropy. The port of ``repro/models/layers.py``.
 
 Every module defines its parameters once, in a ``*_params(mk, cfg)``
-function; the maker ``mk`` decides what comes out: ``InitMaker`` draws
-tensors, ``ShapeMaker`` returns ``(shape, dtype)`` so that
-``convert.lm_params_from_numpy`` can check a tree against the layout.
+function, each with its logical axis names; the maker ``mk`` decides what
+comes out: ``InitMaker`` draws tensors, ``ShapeMaker`` returns ``(shape,
+dtype)`` so that ``convert.lm_params_from_numpy`` can check a tree against
+the layout, and ``SpecMaker`` returns the logical axes, which
+``distributed/sharding.py`` resolves to mesh axes.
 """
 from __future__ import annotations
 
@@ -55,7 +57,9 @@ class InitMaker:
                                     generator=self.generator)
         out.copy_(t.mul_(scale))
 
-    def param(self, shape, init="normal", scale=None, fan_in=None):
+    def param(self, shape, axes=None, init="normal", scale=None,
+              fan_in=None):
+        del axes
         if init == "zeros":
             return torch.zeros(shape, dtype=self.dtype, device=self.device)
         if init == "ones":
@@ -77,9 +81,24 @@ class ShapeMaker:
     def __init__(self, dtype: torch.dtype):
         self.dtype = dtype
 
-    def param(self, shape, init="normal", scale=None, fan_in=None):
-        del init, scale, fan_in
+    def param(self, shape, axes=None, init="normal", scale=None,
+              fan_in=None):
+        del axes, init, scale, fan_in
         return tuple(shape), self.dtype
+
+
+class SpecMaker:
+    """Returns the logical-axis annotation of each parameter."""
+
+    def param(self, shape, axes, init="normal", scale=None, fan_in=None):
+        del init, scale, fan_in
+        assert len(axes) == len(shape), f"axes {axes} vs shape {shape}"
+        return tuple(axes)
+
+
+def _lead(stacked):
+    """The logical axes of a parameter's stacking dims."""
+    return tuple("layer" for _ in stacked)
 
 
 # ---------------------------------------------------------------------------
@@ -88,7 +107,8 @@ class ShapeMaker:
 
 
 def rmsnorm_params(mk, dim, stacked=()):
-    return {"scale": mk.param(stacked + (dim,), init="ones")}
+    return {"scale": mk.param(stacked + (dim,), _lead(stacked) + ("embed",),
+                              init="ones")}
 
 
 def rmsnorm(params, x, eps):
@@ -152,10 +172,11 @@ def apply_rope(x, cos, sin):
 
 
 def embedding_params(mk, cfg: ModelConfig):
-    p = {"embed": mk.param((cfg.vocab_size, cfg.d_model), scale=1.0,
-                           fan_in=cfg.d_model)}
+    p = {"embed": mk.param((cfg.vocab_size, cfg.d_model), ("vocab", "embed"),
+                           scale=1.0, fan_in=cfg.d_model)}
     if not cfg.tie_embeddings:
-        p["unembed"] = mk.param((cfg.d_model, cfg.vocab_size))
+        p["unembed"] = mk.param((cfg.d_model, cfg.vocab_size),
+                                ("embed", "vocab"))
     return p
 
 
@@ -163,7 +184,12 @@ def embed(params, tokens, cfg: ModelConfig):
     # F.embedding, not indexing: on the CPU its backward sums the rows of
     # repeated tokens in a fixed order, where indexing's accumulating
     # index_put does not
-    h = torch.nn.functional.embedding(tokens, params["embed"]).to(
+    from repro_torch.distributed import axisenv
+    # on a mesh the lookup reads a replicated table: a gather from a
+    # vocab-sharded one comes back as DTensor's masked partial sum, which
+    # neither the norm that follows nor the backward takes
+    table = axisenv.constrain(params["embed"], None, None)
+    h = torch.nn.functional.embedding(tokens, table).to(
         dtype_of(cfg.compute_dtype))
     if cfg.emb_scale:
         h = h * torch.tensor(math.sqrt(cfg.d_model), dtype=h.dtype,
@@ -172,8 +198,9 @@ def embed(params, tokens, cfg: ModelConfig):
 
 
 def unembed(params, h, cfg: ModelConfig):
+    from repro_torch.distributed import axisenv
     w = params["embed"].T if cfg.tie_embeddings else params["unembed"]
-    logits = h @ w.to(h.dtype)
+    logits = axisenv.constrain(h @ w.to(h.dtype), "batch", None, "model")
     if cfg.final_logit_softcap:
         cap = cfg.final_logit_softcap
         logits = cap * torch.tanh(logits.float() / cap)
@@ -193,7 +220,11 @@ def softmax_cross_entropy(logits, labels, mask=None):
     logits = logits.float()
     m = logits.amax(-1, keepdim=True)
     lse = m[..., 0] + torch.log(torch.exp(logits - m).sum(-1))
-    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    gold = torch.gather(logits, -1, labels.long()[..., None])
+    # on a mesh: a gather from vocab-sharded logits is a masked partial
+    # sum; reduce it before the squeeze (DTensor cannot after it)
+    from repro_torch.distributed import axisenv
+    gold = axisenv.constrain(gold, "batch", None, None)[..., 0]
     nll = lse - gold
     if mask is None:
         mask = torch.ones_like(nll)

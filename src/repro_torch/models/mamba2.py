@@ -16,7 +16,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.mamba2_ssd import ops as ssd_ops
-from repro_torch.models.layers import dtype_of, rmsnorm
+from repro_torch.models.layers import _lead, dtype_of, rmsnorm
 
 # log-decay clamp: keeps exp() terms finite in every implementation
 MIN_LOG_A = -12.0
@@ -36,15 +36,22 @@ def mamba_params(mk, cfg: ModelConfig, stacked=()):
     N, W = cfg.ssm_state, cfg.ssm_conv
     conv_ch = d_inner + 2 * G * N
     proj_out = 2 * d_inner + 2 * G * N + H      # z, x, B, C, dt
+    lead = _lead(stacked)
     return {
-        "in_proj": mk.param(stacked + (d, proj_out), fan_in=d),
-        "conv_w": mk.param(stacked + (W, conv_ch), scale=0.5),
-        "conv_b": mk.param(stacked + (conv_ch,), init="zeros"),
-        "a_log": mk.param(stacked + (H,), init="ones"),
-        "dt_bias": mk.param(stacked + (H,), init="zeros"),
-        "d_skip": mk.param(stacked + (H,), init="ones"),
-        "norm": mk.param(stacked + (d_inner,), init="ones"),
-        "out_proj": mk.param(stacked + (d_inner, d), fan_in=d_inner),
+        "in_proj": mk.param(stacked + (d, proj_out),
+                            lead + ("embed", "ssm_inner"), fan_in=d),
+        "conv_w": mk.param(stacked + (W, conv_ch),
+                           lead + ("conv", "ssm_inner"), scale=0.5),
+        "conv_b": mk.param(stacked + (conv_ch,),
+                           lead + ("ssm_inner",), init="zeros"),
+        "a_log": mk.param(stacked + (H,), lead + ("ssm_heads",), init="ones"),
+        "dt_bias": mk.param(stacked + (H,), lead + ("ssm_heads",),
+                            init="zeros"),
+        "d_skip": mk.param(stacked + (H,), lead + ("ssm_heads",), init="ones"),
+        "norm": mk.param(stacked + (d_inner,), lead + ("ssm_inner",),
+                         init="ones"),
+        "out_proj": mk.param(stacked + (d_inner, d),
+                             lead + ("ssm_inner", "embed"), fan_in=d_inner),
     }
 
 

@@ -8,9 +8,10 @@ Implementations, selected by ``cfg.moe_impl`` as in the JAX package:
   The slots of all rows are gathered expert-major into (E, B*C, D), the
   per-expert FFN runs on them, and the results are gathered back. Tokens
   past an expert's capacity C are dropped (the residual stream passes them
-  through). The JAX package keeps a batch-major (B, E, C, D) buffer for its
-  GSPMD sharding constraints, which the port has no use for; each output
-  row is the same dot product either way.
+  through). The JAX package keeps a batch-major (B, E, C, D) buffer; the
+  port's expert-major buffer takes the same sharding constraints (experts
+  over "model", batch rows over the data axes) at the same points, and
+  each output row is the same dot product either way.
 - ``einsum``: the GShard one-hot dispatch/combine einsums; the same
   semantics as ``dropping`` at O(T*E*C*D) cost, for tiny shapes.
 - ``dense``: every expert for every token, mixed by the router weights (no
@@ -18,8 +19,9 @@ Implementations, selected by ``cfg.moe_impl`` as in the JAX package:
 - ``gmm``: the dispatch of ``dropping`` with the three expert products in
   the grouped-matmul kernel (``kernels/moe_gmm/ops.py::expert_ffn``), one
   call per product on the untiled (E, D, F) weights.
-- ``ep_a2a``: the expert-parallel all-to-all path waits for the
-  multi-device slice (ROADMAP.md section 1 item 8).
+- ``ep_a2a``: the expert-parallel all-to-all path of ``models/moe_ep.py``
+  under an axis environment with a mesh; ``moe_dropping`` without one, at
+  tp <= 1, or where S or E is not divisible by tp.
 
 JAX drops out-of-range scatters and fills out-of-range gathers with zeros;
 in PyTorch an index out of range is an error. So the slot table has one
@@ -32,17 +34,24 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.layers import dtype_of
+from repro_torch.distributed import axisenv
+from repro_torch.distributed.sharding import mesh_axis_size
+from repro_torch.models.layers import _lead, dtype_of
 from repro_torch.models.mlp import _ACTS
 
 
 def moe_params(mk, cfg: ModelConfig, stacked=()):
     d, f, e = cfg.d_model, cfg.d_ff, cfg.num_experts
+    lead = _lead(stacked)
     return {
-        "router": mk.param(stacked + (d, e), fan_in=d),
-        "wi_gate": mk.param(stacked + (e, d, f), fan_in=d),
-        "wi_up": mk.param(stacked + (e, d, f), fan_in=d),
-        "wo": mk.param(stacked + (e, f, d), fan_in=f),
+        "router": mk.param(stacked + (d, e), lead + ("embed", "experts"),
+                           fan_in=d),
+        "wi_gate": mk.param(stacked + (e, d, f),
+                            lead + ("experts", "embed", "ff"), fan_in=d),
+        "wi_up": mk.param(stacked + (e, d, f),
+                          lead + ("experts", "embed", "ff"), fan_in=d),
+        "wo": mk.param(stacked + (e, f, d),
+                       lead + ("experts", "ff", "embed"), fan_in=f),
     }
 
 
@@ -150,14 +159,18 @@ def dispatch(params, x, cfg: ModelConfig, expert_ffn, *,
     base = torch.arange(B, device=x.device)[:, None, None] * (S + 1)
     idx = (slots + base).transpose(0, 1).reshape(-1)
     xe = _with_zero_row(x, 1).reshape(-1, D)[idx]
-    ye = expert_ffn(params, xe.reshape(E, B * C, D)
-                    .to(dtype_of(cfg.compute_dtype)), cfg, **kw)  # (E,B*C,D)
+    xe = axisenv.constrain(xe.reshape(E, B * C, D)
+                           .to(dtype_of(cfg.compute_dtype)),
+                           "model", "batch", None)
+    ye = expert_ffn(params, xe, cfg, **kw)                    # (E,B*C,D)
+    ye = axisenv.constrain(ye, "model", "batch", None)
 
     b = torch.arange(B, device=x.device)[:, None, None]
     flat_idx = torch.where(keep, topi * (B * C) + b * C + pos, E * B * C)
     y_sel = _with_zero_row(ye.reshape(E * B * C, D), 0)[
         flat_idx.reshape(B, -1)]
-    return _combine(y_sel, topw, keep).to(x.dtype), aux
+    y = axisenv.constrain(_combine(y_sel, topw, keep), "batch", None, None)
+    return y.to(x.dtype), aux
 
 
 def moe_dropping(params, x, cfg: ModelConfig):
@@ -205,11 +218,21 @@ def moe_gmm(params, x, cfg: ModelConfig):
     return dispatch(params, x, cfg, gmm_ops.expert_ffn, pass_live=True)
 
 
+def moe_ep(params, x, cfg: ModelConfig):
+    """The shard_map expert-parallel all_to_all path; falls back to the
+    scatter/gather path when the mesh/shape does not fit (no model axis, S
+    or E not divisible, decode with S=1)."""
+    env = axisenv._env()
+    mesh = env.get("mesh") if env else None
+    tp = mesh_axis_size(mesh, "model") if mesh is not None else 1
+    if (mesh is None or tp <= 1 or x.shape[1] % tp
+            or cfg.num_experts % tp):
+        return moe_dropping(params, x, cfg)
+    from repro_torch.models import moe_ep as ep
+    return ep.moe_ep_a2a(params, x, cfg, mesh, env["batch"])
+
+
 def moe_ffn(params, x, cfg: ModelConfig):
-    if cfg.moe_impl == "ep_a2a":
-        raise NotImplementedError(
-            "moe_impl='ep_a2a' (expert-parallel all-to-all) waits for the "
-            "multi-device slice (ROADMAP.md section 1 item 8)")
     impl = {"dropping": moe_dropping, "einsum": moe_einsum,
-            "dense": moe_dense, "gmm": moe_gmm}
+            "dense": moe_dense, "gmm": moe_gmm, "ep_a2a": moe_ep}
     return impl[cfg.moe_impl](params, x, cfg)

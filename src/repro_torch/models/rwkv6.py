@@ -18,7 +18,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.rwkv6_scan import ops as wkv_ops
-from repro_torch.models.layers import dtype_of, rmsnorm
+from repro_torch.models.layers import _lead, dtype_of, rmsnorm
 
 MIN_LOG_W = -12.0
 RWKV_LORA = 64
@@ -33,25 +33,31 @@ def rwkv_dims(cfg: ModelConfig):
 def rwkv_time_mix_params(mk, cfg: ModelConfig, stacked=()):
     d = cfg.d_model
     H, K = rwkv_dims(cfg)
+    lead = _lead(stacked)
     p = {}
     for name in ("mu_r", "mu_k", "mu_v", "mu_g", "mu_w"):
-        p[name] = mk.param(stacked + (d,), init="zeros")
+        p[name] = mk.param(stacked + (d,), lead + ("embed",), init="zeros")
     for name in ("wr", "wk", "wv", "wg", "wo"):
-        p[name] = mk.param(stacked + (d, d), fan_in=d)
-    p["w0"] = mk.param(stacked + (d,), init="zeros")
-    p["w_lora_a"] = mk.param(stacked + (d, RWKV_LORA), fan_in=d)
-    p["w_lora_b"] = mk.param(stacked + (RWKV_LORA, d), scale=0.01)
-    p["u"] = mk.param(stacked + (H, K), init="zeros")
-    p["ln_x"] = mk.param(stacked + (d,), init="ones")
+        p[name] = mk.param(stacked + (d, d), lead + ("embed", "embed2"),
+                           fan_in=d)
+    p["w0"] = mk.param(stacked + (d,), lead + ("embed",), init="zeros")
+    p["w_lora_a"] = mk.param(stacked + (d, RWKV_LORA),
+                             lead + ("embed", "lora"), fan_in=d)
+    p["w_lora_b"] = mk.param(stacked + (RWKV_LORA, d),
+                             lead + ("lora", "embed"), scale=0.01)
+    p["u"] = mk.param(stacked + (H, K), lead + ("heads", "head_dim"),
+                      init="zeros")
+    p["ln_x"] = mk.param(stacked + (d,), lead + ("embed",), init="ones")
     return p
 
 
 def rwkv_channel_mix_params(mk, cfg: ModelConfig, stacked=()):
     d, f = cfg.d_model, cfg.d_ff
+    lead = _lead(stacked)
     return {
-        "mu_k": mk.param(stacked + (d,), init="zeros"),
-        "wk": mk.param(stacked + (d, f), fan_in=d),
-        "wv": mk.param(stacked + (f, d), fan_in=f),
+        "mu_k": mk.param(stacked + (d,), lead + ("embed",), init="zeros"),
+        "wk": mk.param(stacked + (d, f), lead + ("embed", "ff"), fan_in=d),
+        "wv": mk.param(stacked + (f, d), lead + ("ff", "embed"), fan_in=f),
     }
 
 

@@ -35,6 +35,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import axisenv
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba2, rwkv6
 from repro_torch.models.layers import rmsnorm, rmsnorm_params, rope_cos_sin
@@ -100,6 +101,14 @@ def _maybe_post(p, name, y, cfg):
     return rmsnorm(p[name], y, cfg.norm_eps) if cfg.post_norm else y
 
 
+def _residual(h, cfg):
+    """Between-block residual-stream sharding: batch over the data axes,
+    and with ``seq_parallel`` the tokens over the model axis."""
+    if cfg.seq_parallel:
+        return axisenv.constrain(h, "batch", "seq", None)
+    return axisenv.constrain(h, "batch", None, None)
+
+
 def apply_dense_block(p, h, cfg: ModelConfig, *, cos, sin, window=None,
                       causal=True, cache=None, cur_len=None, enc_kv=None,
                       collect_cache=False):
@@ -117,17 +126,19 @@ def apply_dense_block(p, h, cfg: ModelConfig, *, cos, sin, window=None,
         a_out, new_cache = attn.self_attention(
             p["attn"], a_in, cfg, cos=cos, sin=sin, causal=causal,
             window=window, cache=cache, cur_len=cur_len)
-    h = h + _maybe_post(p, "ln1_post", a_out, cfg)
+    h = _residual(h + _maybe_post(p, "ln1_post", a_out, cfg), cfg)
     if enc_kv is not None:
         c_in = rmsnorm(p["ln_cross"], h, cfg.norm_eps)
-        h = h + attn.cross_attention(p["cross"], c_in, enc_kv, cfg)
+        h = _residual(h + attn.cross_attention(p["cross"], c_in, enc_kv, cfg),
+                      cfg)
     m_in = rmsnorm(p["ln2"], h, cfg.norm_eps)
     aux = None
     if "router" in p["ffn"]:
         m_out, aux = moe_ffn(p["ffn"], m_in, cfg)
     else:
         m_out = mlp(p["ffn"], m_in, cfg)
-    return h + _maybe_post(p, "ln2_post", m_out, cfg), new_cache, aux
+    return (_residual(h + _maybe_post(p, "ln2_post", m_out, cfg), cfg),
+            new_cache, aux)
 
 
 def apply_rwkv_block(p, h, cfg: ModelConfig, cache=None):

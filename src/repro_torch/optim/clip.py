@@ -5,7 +5,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.utils.trees import tree_global_norm, tree_leaves
+from repro_torch.utils.trees import tree_global_norm, tree_leaves, whole
 
 
 def clip_by_global_norm(grads, max_norm: float):
@@ -25,7 +25,10 @@ def zero_nonfinite(grads):
     leaves = tree_leaves(grads)
     if not leaves:
         return grads, torch.tensor(False)
-    ok = torch.stack([torch.isfinite(g).all() for g in leaves]).all()
+    # a count of the non-finite entries, not ``all()``: a sharded leaf's
+    # count is a partial sum that ``whole`` reduces over the ranks
+    ok = torch.stack([whole((~torch.isfinite(g)).sum())
+                      for g in leaves]).sum() == 0
     for g in leaves:
         g.masked_fill_(~ok, 0)
     return grads, ~ok

@@ -98,6 +98,12 @@ def tree_cast(tree, dtype):
     return tree_map(lambda leaf: leaf.to(dtype), tree)
 
 
+def whole(t):
+    """A DTensor as the whole tensor every rank then holds (reductions of a
+    sharded tree meet in one value); a plain tensor as it is."""
+    return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+
 def tree_finite(tree) -> torch.Tensor:
     """True iff every leaf is finite everywhere (a 0-d bool tensor)."""
     leaves = [torch.isfinite(leaf).all() for leaf in tree_leaves(tree)]
@@ -106,6 +112,7 @@ def tree_finite(tree) -> torch.Tensor:
 
 def tree_global_norm(tree) -> torch.Tensor:
     """sqrt of the sum of squares of every leaf, in f32."""
-    leaves = [leaf.float().square().sum() for leaf in tree_leaves(tree)]
+    leaves = [whole(leaf.float().square().sum())
+              for leaf in tree_leaves(tree)]
     return (torch.stack(leaves).sum().sqrt() if leaves
             else torch.tensor(0.0))

@@ -182,9 +182,8 @@ def test_lm_params_from_numpy_checks_the_layout():
 
 
 def test_unported_layers_raise():
-    """A layer the port has not got raises, naming the ROADMAP item that
-    brings it: expert-parallel MoE (item 8). The gemma2 post-norms and
-    local/global stack and M-RoPE, which raised here until they were
+    """Every layer is ported: the gemma2 post-norms and local/global stack
+    and M-RoPE, and expert-parallel MoE, which raised here until they were
     ported, build and run."""
     cfg = get_config("internlm2-1.8b", reduced=True).replace(
         param_dtype="float32", compute_dtype="float32")
@@ -194,10 +193,14 @@ def test_unported_layers_raise():
         c = cfg.replace(**kw)
         logits, _ = api.forward(api.init_params(c, device="cpu"), c, tokens)
         assert bool(torch.isfinite(logits).all())
+    # expert-parallel MoE is ported: with no mesh it falls back to the
+    # dropping path, as the JAX package's moe_ep does
     moe = get_config("llama4-scout-17b-a16e", reduced=True).replace(
-        moe_impl="ep_a2a")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        api.forward(api.init_params(moe, device="cpu"), moe, tokens)
+        param_dtype="float32", compute_dtype="float32")
+    params = api.init_params(moe, device="cpu")
+    want, _ = api.forward(params, moe, tokens)
+    got, _ = api.forward(params, moe.replace(moe_impl="ep_a2a"), tokens)
+    assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("shape,dtype,budget", [

@@ -185,7 +185,9 @@ def test_gmm_path_calls_the_kernel_once_per_product_on_untiled_weights(
 
 def test_dispatch_names_the_pending_path(layer):
     _, _, cfg, p, x = layer
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        moe.moe_ffn(p, torch.from_numpy(x), cfg.replace(moe_impl="ep_a2a"))
+    # ep_a2a is ported; with no mesh it is the dropping path, as in JAX
+    got = moe.moe_ffn(p, torch.from_numpy(x), cfg.replace(moe_impl="ep_a2a"))
+    want = moe.moe_dropping(p, torch.from_numpy(x), cfg)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     with pytest.raises(KeyError):
         moe.moe_ffn(p, torch.from_numpy(x), cfg.replace(moe_impl="sorted"))

@@ -235,11 +235,6 @@ def test_compress_tree_matches_jax(method):
             assert err is None
 
 
-def test_psum_compressed_needs_a_mesh():
-    with pytest.raises(NotImplementedError, match="section 1 item 8"):
-        compress.psum_compressed({"a": torch.ones(2)}, "pod", "int8_ef")
-
-
 # ---------------------------------------------------------------------------
 # copied config pieces
 # ---------------------------------------------------------------------------
