@@ -123,13 +123,14 @@ Phases:
      The first epoch's loss gradients and the weights after one Adam epoch
      within 1e-5 of each tensor's scale, the last loss of a three-epoch
      retrain within 1e-4, and that loss below the first epoch's. Then time
-     an epoch on the card at 48 and at 168 molecules (the most a campaign
-     trains on) and read the peak memory.
+     an epoch on the card at 48 and at 112 molecules (the most a campaign
+     of budget 64 trains on) and read the peak memory.
  22. Campaign: ``run_campaign`` at full width on the card under each policy
      (random, no-retrain, update-n) with the ``AppConfig`` defaults (800
-     molecules, budget 120, a retrain every 16 results, 200 epochs). Under
+     molecules, a retrain every 16 results, 200 epochs) but a budget of 64
+     (of 120). Under
      update-n each QC assay waits before the oracle answers, long enough
-     that the longest retrain of the campaign (200 epochs at 168 molecules,
+     that the longest retrain of the campaign (200 epochs at 112 molecules,
      timed in phase 21) returns before the next 16 results are in: the
      paper's assays take hours and its retrains minutes, so there the model
      is refreshed after every n results. Random and no-retrain never
@@ -153,11 +154,11 @@ Phases:
      it launches anything.
  24. Train internlm2-1.8b at its published widths and depth (24 layers,
      1.889 G parameters) in bf16 with remat "block" through
-     ``launch.train.train``: batch 8 x 2048 as 2 microbatches of 4, 20
+     ``launch.train.train``: batch 8 x 2048 as 2 microbatches of 4, 10
      steps at lr 3e-4 (warmup 1), the copied ``tokens.make_batch`` data.
      Every kernel launch count is set to 0 just before and must still be 0
      just after: training runs no hand-written kernel. Reports ms per step
-     (median of steps 3-20), tokens/s, model TFLOP/s, mfu and peak memory;
+     (median of steps 3-10), tokens/s, model TFLOP/s, mfu and peak memory;
      the mean loss of the last 5 steps must be below that of the first 5.
  25. Checkpoint on the card: the 2-layer cut in bf16 trains 2 steps, is
      saved at step 2 (``CheckpointManager.save``) and trains on in place;
@@ -241,6 +242,43 @@ Phases:
      candidates a task, then without the scorer (the paper's envelope):
      per-task dispatch overhead ((N x makespan - summed task runtimes) / T)
      and result latency.
+ 38. kimi-k2's expert-parallel prefill (``moe_impl="ep_a2a"``) at
+     published widths cut to one layer, on a (1, 2) mesh of two spawned
+     ranks sharing the card over gloo (collectives staged through the host).
+ 39. The sharded train step (``build_program("train")``) on the same mesh,
+     2 steps in each of dp_tp and fsdp_tp, each held against the
+     single-process step.
+ 40. Training gemma2-2b (published widths and depth) and qwen2-vl-72b (one
+     layer) through ``launch.train.train``.
+ 41. The sharded prefill and decode programs (``build_program("prefill")``,
+     ``shard_cache``, ``build_program("decode")``) of internlm2-1.8b and
+     zamba2-1.2b at published widths and depth, bf16, with
+     ``attn_impl="kernel"``, on the (1, 2) mesh: a prefill of 2 x 2048
+     (a first call, then the timed one), then 16 decode steps
+     teacher-forced with the single process's greedy tokens. First flash
+     and SSD are held against their plain versions at the per-rank shapes.
+     The kernels run on each rank's local heads
+     (``kernels/dispatch.run_local``); their launches are counted on each
+     rank from 0 around the timed prefill and must be > 0. Held against
+     the single process on the same weights drawn on the card (in f32,
+     cast to bf16), at the prefill and at every decode step: the sharded
+     bf16 logits at most ``BF16_PREFILL_RATIO`` times as far from the f32
+     logits of the plain versions (same tokens) as the single process's
+     bf16 logits through the kernels (bf16 noise: the row-parallel partial
+     sums meet in bf16, in another order; the distances are logged in bf16
+     ulps at the logits' scale), and the argmax equal to the single
+     process's greedy token in every row whose top-2 gap exceeds twice the
+     two passes' distance. The same programs in f32 at published widths
+     cut to ``SHARDED_F32_CUT`` layers, 4 teacher-forced decode steps, held
+     against the single process through the same kernels at
+     ``SHARDED_F32_TOL`` of the logits' scale (far inside bf16's noise, so
+     a wrong cache write shows). Then flash and SSD timed at the per-rank
+     shapes beside SDPA and the bound.
+ 42. The dry run (``python -m repro_torch.launch.dryrun``) of internlm2-1.8b
+     and kimi-k2-1t-a32b at train_4k and decode_32k and of zamba2-1.2b at
+     long_500k on the single-pod mesh (a fake world of 256 ranks, meta
+     tensors), one subprocess a cell that sees no card, started after
+     phase 41: every cell's status must be ok.
 
 The kernels are built first, one ``nvcc`` per source, all in parallel;
 ``ptxas`` reports each kernel's registers and spills. Every time (kernel,
@@ -255,6 +293,7 @@ without a CUDA device or when any check fails.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import gc
 import json
 import math
@@ -298,7 +337,7 @@ from repro_torch.kernels.rwkv6_scan import ops as wkv_ops  # noqa: E402
 from repro_torch.kernels.rwkv6_scan import rwkv6_scan  # noqa: E402
 from repro_torch.kernels.rwkv6_scan.ref import wkv6_chunked  # noqa: E402
 from repro_torch.distributed import axisenv, comm  # noqa: E402
-from repro_torch.launch import sharded  # noqa: E402
+from repro_torch.launch import hlo_analysis, sharded  # noqa: E402
 from repro_torch.launch import steps as train_steps  # noqa: E402
 from repro_torch.launch.mesh import make_mesh  # noqa: E402
 from repro_torch.launch.train import train as train_lm  # noqa: E402
@@ -325,11 +364,12 @@ TEST_SHAPES = [(3, 16, 32), (2, 8, 64)]  # tests/test_kernels.py::test_mpnn_kern
 # bf16: both round an f32 sum to bf16, so they may differ by one bf16 ulp
 # (<= 2**-7 relative).
 TOLERANCE = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2.0 ** -7, 1e-4)}
-# H100 SXM peaks (NVIDIA data sheet, 700 W): HBM3 bytes/s and f32 FLOP/s
-# outside the tensor cores.
-HBM_BYTES_PER_S = 3.35e12
-F32_FLOP_PER_S = 67e12
-BF16_FLOP_PER_S = 989e12     # dense, tensor cores
+# H100 SXM datasheet peaks (H100 80GB HBM3, 700 W), the port's one set
+# (``launch/hlo_analysis.py``): HBM3 bytes/s, f32 FLOP/s outside the tensor
+# cores, bf16 dense FLOP/s on them.
+HBM_BYTES_PER_S = hlo_analysis.HBM_BW
+F32_FLOP_PER_S = hlo_analysis.F32_FLOPS
+BF16_FLOP_PER_S = hlo_analysis.PEAK_FLOPS
 
 LM_ARCH = "internlm2-1.8b"
 # (B, Sq, Sk, H, KVH, hd, causal, window, softcap, q_offset):
@@ -471,7 +511,10 @@ GMM_LIVE = 8
 # Phase 18's decode step follows a prompt of this many tokens.
 MOE_DECODE_PROMPT = 16
 
-CAMPAIGN = AppConfig()       # the app's defaults: 800 molecules, budget 120
+# The app's defaults (800 molecules, a retrain every 16 results, 200
+# epochs) with the budget of 120 cut to 64, so that the script keeps its
+# time limit: update-n still retrains 4 times.
+CAMPAIGN = AppConfig(qc_budget=64)
 # f32 on both sides: the card's and the CPU's retrain differ only in
 # summation order, as the port and the JAX package do in the CPU tests (1e-5
 # there at unit scale); held relative to each tensor's largest |value|.
@@ -493,7 +536,7 @@ TRAIN_STEPS = 3
 # the JAX package), and 1e-5 relative elsewhere.
 MOMENT_TOL = 5e-5
 # Phase 24: the trainer at full width.
-FULL_TRAIN = dict(batch=8, seq=2048, microbatches=2, steps_total=20, lr=3e-4)
+FULL_TRAIN = dict(batch=8, seq=2048, microbatches=2, steps_total=10, lr=3e-4)
 # Phase 25: checkpoint at step CKPT_STEP of CKPT_STEPS.
 CKPT_STEP, CKPT_STEPS = 2, 4
 # The interrupted and the uninterrupted run repeat the same operations on
@@ -598,6 +641,32 @@ EP_F32_TOL = 1e-5
 # held by phase 23's rule; metrics to 1e-6 relative.
 SHARDED_MODES = ("dp_tp", "fsdp_tp")
 SHARDED_METRIC_TOL = 1e-6
+SHARDED_TRAIN_STEPS = 2
+# Phase 41: the sharded prefill (B, S) and teacher-forced decode steps on the
+# mesh, and the per-rank shapes of its kernels at tp = 2: internlm2's flash
+# (8 of 16 heads, 4 of 8 KV heads) and zamba2's SSD (32 of 64 heads).
+SHARDED_SERVE_ARCHS = (LM_ARCH, HYBRID_ARCH)
+SHARDED_SERVE_SHAPE = (2, 2048)
+SHARDED_SERVE_STEPS = 16
+# The sharded decode program is also held in f32, where sharded and single
+# process agree far inside bf16's noise: internlm2 cut to 2 layers, zamba2
+# to 8 (a group of 6 Mamba2 layers, the shared attention block, a tail of
+# 2), 4 decode steps, logits within 1e-4 of their scale (the CPU test's
+# tolerance for zamba2's sharded programs).
+SHARDED_F32_CUT = {LM_ARCH: 2, HYBRID_ARCH: 8}
+SHARDED_F32_STEPS = 4
+SHARDED_F32_TOL = 1e-4
+SHARDED_FA_RANK = (2, 2048, 2048, 8, 4, 128, True, None, None, 0)
+SHARDED_SSD_RANK = (2, 2048, 32, 64, 1, 64, 128)
+# Phase 42: the dry run's cells on the single-pod mesh, as (arch, shape),
+# one subprocess each, and the seconds phase 42 waits for them.
+DRY_RUN_CELLS = (("kimi-k2-1t-a32b", "train_4k"),
+                 ("internlm2-1.8b", "train_4k"),
+                 ("kimi-k2-1t-a32b", "decode_32k"),
+                 ("internlm2-1.8b", "decode_32k"),
+                 ("zamba2-1.2b", "long_500k"))
+DRY_RUN_TIMEOUT = 600
+ROOT = os.path.dirname(os.path.abspath(__file__))
 # Phase 40: the trainer at published widths on gemma2-2b (8 x 2048 a step;
 # a microbatch of 2 x 2048 has 4.2 GB of f32 logits at vocab 256,000) and
 # on qwen2-vl-72b cut to one layer (its 2.5 G embedding parameters alone
@@ -617,7 +686,14 @@ SYNAPP = dict(T=100, D=0.005, I=1 << 16, N=4, vs_shards=2,
               score_candidates=3, inference_shards=1)
 
 
+T0 = time.perf_counter()
+
+
 def log(msg: str) -> None:
+    """Print ``msg``; a phase's first line carries the script's seconds so
+    far, so that each phase's seconds can be read off the log."""
+    if msg.startswith("phase "):
+        msg = f"[{time.perf_counter() - T0:.1f} s] {msg}"
     print(msg, flush=True)
 
 
@@ -1272,8 +1348,13 @@ def phase_hybrid_serve() -> dict:
 def phase_ssd_report() -> tuple[dict, dict]:
     log(f"phase 12: time mamba2_ssd at the serving shape {SSD_SERVING} (bf16, "
         f"bf16 log decay), and flash_attention at {FA_HYBRID[:6]}")
-    gen = torch.Generator(device=DEV).manual_seed(SEED + 10)
-    case = SSD_SERVING
+    return time_ssd(SSD_SERVING, SEED + 10), time_flash(FA_HYBRID, SEED + 11)
+
+
+def time_ssd(case, seed: int) -> dict:
+    """Kernel and plain version at ``case`` in bf16 (bf16 log decay),
+    beside the bound; no library call computes the scan."""
+    gen = torch.Generator(device=DEV).manual_seed(seed)
     x, la, b, c, s0 = ssd_inputs(case, torch.bfloat16, gen, torch.bfloat16)
     Q = case[-1]
     ms = median_ms(lambda: ssd_ops.ssd(x, la, b, c, s0, impl="kernel", chunk=Q))
@@ -1294,11 +1375,10 @@ def phase_ssd_report() -> tuple[dict, dict]:
         f"{flops / 1e9:.1f} GFLOP at {BF16_FLOP_PER_S / 1e12:.0f} TFLOP/s = "
         f"{flops_ms:.3f} ms, at {F32_FLOP_PER_S / 1e12:.0f} TFLOP/s f32 = "
         f"{flops / F32_FLOP_PER_S * 1e3:.3f} ms)")
-    ssd = {"ms": ms, "plain_ms": plain_ms,
-           "bound_ms": max(bytes_ms, flops_ms),
-           "bound_by": "bytes" if bytes_ms >= flops_ms else "operations",
-           "library_ms": None, "shape": list(case), "dtype": "bfloat16"}
-    return ssd, time_flash(FA_HYBRID, SEED + 11)
+    return {"ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(bytes_ms, flops_ms),
+            "bound_by": "bytes" if bytes_ms >= flops_ms else "operations",
+            "library_ms": None, "shape": list(case), "dtype": "bfloat16"}
 
 
 def bf16_ulp(t) -> float:
@@ -1925,7 +2005,7 @@ def phase_campaign(epoch_ms: float) -> dict:
     unproxied = sum(v for k, v in sizes.items() if k not in proxied)
     outs, launches = {}, 0
     for policy in POLICIES:
-        app = AppConfig(policy=policy)
+        app = dataclasses.replace(CAMPAIGN, policy=policy)
         wait = qc_seconds if policy == "update-n" else 0.0
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -3125,7 +3205,7 @@ def sharded_train_rank(rank: int, world: int, payload, device) -> dict:
         bspecs = train_steps.input_shardings(cfg, shape, mesh, mode)["batch"]
         rng = np.random.default_rng(SEED + 39)
         ms, worst = [], []
-        for t in range(1, TRAIN_STEPS + 1):
+        for t in range(1, SHARDED_TRAIN_STEPS + 1):
             toks = rng.integers(0, cfg.vocab_size, size=(B, S + 1),
                                 dtype=np.int32)
             batch = {"tokens": torch.from_numpy(toks[:, :-1]).to(DEV),
@@ -3171,7 +3251,8 @@ def phase_sharded_train() -> dict:
     log(f"phase 39: the sharded train step (build_program) of {LM_ARCH} at "
         f"published widths cut to {TRAIN_CUT} layers, f32, B={B}, S={S}, on "
         f"the {EP_MESH} mesh of 2 ranks sharing the card over gloo, modes "
-        f"{', '.join(SHARDED_MODES)} (ZeRO-1): {TRAIN_STEPS} steps each, "
+        f"{', '.join(SHARDED_MODES)} (ZeRO-1): {SHARDED_TRAIN_STEPS} steps "
+        "each, "
         "each from the single-process state before it")
     t0 = time.perf_counter()
     ranks = sharded.run_world(sharded_train_rank, EP_MESH[1], None,
@@ -3244,6 +3325,386 @@ def phase_train_archs() -> dict:
             f"{out[arch]['mfu']:.4f}, peak device memory {peak:.2f} GiB; loss "
             f"{losses[0]:.4f} -> {losses[-1]:.4f}; {wall:.1f} s in all")
         torch.cuda.empty_cache()
+    return out
+
+
+def sharded_serve_rank(rank: int, world: int, payload, device) -> dict:
+    """Phase 41 on one rank: each arch's sharded programs in bf16 at full
+    depth (16 decode steps) and in f32 at ``SHARDED_F32_CUT`` layers
+    (``SHARDED_F32_STEPS``), teacher-forced with ``payload[arch]``, the
+    single process's greedy tokens."""
+    mesh = make_mesh(EP_MESH, ("data", "model"), device)
+    out = {}
+    for arch in SHARDED_SERVE_ARCHS:
+        feed = payload[arch]
+        out[arch] = sharded_serve_run(sharded_serve_config(arch), mesh, feed,
+                                      SHARDED_SERVE_STEPS)
+        out[arch]["f32_cut_logits"] = sharded_serve_run(
+            sharded_serve_config(arch, f32_cut=True), mesh, feed,
+            SHARDED_F32_STEPS, warm=False)["logits"]
+    return out
+
+
+def sharded_serve_run(cfg, mesh, feed, n: int, warm: bool = True) -> dict:
+    """One config's sharded prefill of SHARDED_SERVE_SHAPE through
+    ``build_program`` (with ``warm``, a first call, then the timed one;
+    the flash and SSD launches are counted around the last),
+    ``shard_cache``, then ``n`` decode steps, step t taking ``feed[:, t]``;
+    the logits (n + 1, B, V) f32 of the prefill and each step, times,
+    counts and peak memory."""
+    sc = ShardingConfig(mode="dp_tp")
+    B, S = SHARDED_SERVE_SHAPE
+    pre = ShapeConfig("prefill", "prefill", S, B)
+    dec = ShapeConfig("decode", "decode", S + n, B)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    params = train_steps.shard_tree(
+        sharded_serve_weights(cfg),
+        train_steps.state_shardings(cfg, mesh, sc)["params"], mesh)
+    torch.cuda.empty_cache()
+    prompts = np.random.default_rng(SEED + 41).integers(
+        0, cfg.vocab_size, size=(B, S), dtype=np.int64)
+    batch = train_steps.shard_tree(
+        {"tokens": torch.from_numpy(prompts).to(DEV)},
+        train_steps.input_shardings(cfg, pre, mesh)["batch"], mesh)
+    tok_spec = train_steps.input_shardings(cfg, dec, mesh)["tokens"]
+    feed = torch.from_numpy(feed).to(DEV)
+    prefill, _ = train_steps.build_program(cfg, pre, mesh, sc=sc)
+    decode, _ = train_steps.build_program(cfg, dec, mesh, sc=sc)
+    cold_s = None
+    with torch.no_grad():
+        # the first call also pays DTensor's sharding propagation and the
+        # local-map set-up: it is timed apart
+        if warm:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            whole(prefill(params, batch)[0])
+            torch.cuda.synchronize()
+            cold_s = time.perf_counter() - t0
+        mods = zero_launches()
+        comm.STAGED.clear()
+        comm.STAGED_S.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = prefill(params, batch)
+        logits = whole(logits)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        launches = launch_counts(mods)
+        staged = (sum(comm.STAGED.values()), sum(comm.STAGED_S.values()))
+        cache = train_steps.shard_cache(cache, cfg, dec, mesh)
+        placed = sharded.placements_match(
+            cache, train_steps.input_shardings(cfg, dec, mesh)["cache"],
+            mesh)
+        steps = [logits.float().cpu().numpy()]
+        comm.STAGED.clear()
+        comm.STAGED_S.clear()
+        step_s = []
+        for t in range(n):
+            cur = train_steps.shard_tree(feed[:, t:t + 1], tok_spec, mesh)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, cache = decode(params, cache, cur, S + t)
+            logits = whole(logits)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            steps.append(logits.float().cpu().numpy())
+    out = {
+        "logits": np.stack(steps), "launches": launches, "placed": placed,
+        "prefill_ms": prefill_s * 1e3,
+        "prefill_cold_ms": cold_s and cold_s * 1e3,
+        "decode_ms": float(np.median(step_s)) * 1e3,
+        "prefill_staged": staged,
+        "decode_staged": (sum(comm.STAGED.values()),
+                          sum(comm.STAGED_S.values())),
+        "decode_s": sum(step_s),
+        "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    del params, cache, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def sharded_serve_config(arch: str, f32_cut: bool = False):
+    """Phase 41's config of ``arch``: published widths through the kernels,
+    at full depth in bf16, or cut to SHARDED_F32_CUT[arch] layers in f32."""
+    cfg = get_config(arch).replace(attn_impl="kernel")
+    if not f32_cut:
+        return cfg
+    return cfg.replace(num_layers=SHARDED_F32_CUT[arch],
+                       param_dtype="float32", compute_dtype="float32")
+
+
+def sharded_serve_weights(cfg, dtype=None):
+    """Phase 41's weights of ``cfg``: drawn in f32 on the card from a seed,
+    cast to ``dtype`` (default the config's); every rank and the single
+    process draw the same."""
+    dtype = dtype or getattr(torch, cfg.param_dtype)
+    params = lm_api.init_params(
+        cfg.replace(param_dtype="float32", compute_dtype="float32"),
+        torch.Generator(device=DEV).manual_seed(SEED + 41), DEV)
+    return params if dtype == torch.float32 else _cast_tree(params, dtype)
+
+
+def forced_decode(params, cfg, prompts, steps: int, feed=None):
+    """Single-process prefill and ``steps`` decode steps. Step t takes
+    ``feed[:, t - 1]``, or the greedy token (the argmax of the logits
+    before it) without ``feed``. Returns the logits (steps + 1, B, V) f32,
+    the greedy tokens (B, steps + 1) and each token's top-2 gap."""
+    B, S = prompts.shape
+    logits_t, toks, gaps = [], [], []
+    with torch.no_grad():
+        logits, cache = lm_api.prefill(
+            params, cfg, {"tokens": torch.as_tensor(prompts, device=DEV)},
+            reserve=S + steps)
+        for t in range(steps + 1):
+            if t:
+                cur = toks[-1] if feed is None else torch.as_tensor(
+                    feed[:, t - 1], device=DEV)
+                logits, cache = lm_api.decode_step(params, cfg, cache,
+                                                   cur[:, None], S + t - 1)
+            top = logits.float().topk(2, dim=-1).values
+            gaps.append((top[:, 0] - top[:, 1]).cpu().numpy())
+            toks.append(logits.argmax(-1))
+            logits_t.append(logits.float().cpu().numpy())
+    return (np.stack(logits_t), torch.stack(toks, 1).cpu().numpy(),
+            np.stack(gaps, 1))
+
+
+def sharded_serve_refs(arch: str, prompts) -> dict:
+    """The single process's bf16 greedy decode through the kernels, the f32
+    decode through the plain versions teacher-forced with its tokens, on
+    phase 41's weights, and the f32 cut-depth decode through the kernels,
+    teacher-forced with the same tokens."""
+    n, m = SHARDED_SERVE_STEPS, SHARDED_F32_STEPS
+    cfg = sharded_serve_config(arch)
+    params = sharded_serve_weights(cfg, torch.float32)
+    f32_cfg = cfg.replace(param_dtype="float32", compute_dtype="float32",
+                          attn_impl="ref")
+    bf16 = _cast_tree(params, torch.bfloat16)
+    single, toks, gaps = forced_decode(bf16, cfg, prompts, n)
+    del bf16
+    torch.cuda.empty_cache()
+    f32, _, _ = forced_decode(params, f32_cfg, prompts, n, feed=toks[:, :n])
+    del params
+    torch.cuda.empty_cache()
+    cut = sharded_serve_config(arch, f32_cut=True)
+    f32_cut, _, _ = forced_decode(sharded_serve_weights(cut), cut, prompts,
+                                  m, feed=toks[:, :m])
+    torch.cuda.empty_cache()
+    return {"single": single, "f32": f32, "tokens": toks, "gaps": gaps,
+            "f32_cut": f32_cut}
+
+
+def hold_f32_cut(arch: str, ranks, want) -> float:
+    """Each rank's f32 cut-depth logits (prefill and decode steps) against
+    the single process's through the same kernels: max abs error within
+    SHARDED_F32_TOL of the logits' scale."""
+    scale = float(np.abs(want).max())
+    err = max(float(np.abs(o[arch]["f32_cut_logits"] - want).max())
+              for o in ranks)
+    check(err <= SHARDED_F32_TOL * scale,
+          f"{arch} f32 at {SHARDED_F32_CUT[arch]} layers: sharded logits "
+          f"max abs err {err:.3e} at scale {scale:.3e}")
+    log(f"  {arch} f32 at {SHARDED_F32_CUT[arch]} layers, prefill and "
+        f"{want.shape[0] - 1} teacher-forced decode steps: sharded against "
+        f"the single process max abs err {err:.3e} at |logit| <= "
+        f"{scale:.3e} (held at {SHARDED_F32_TOL:.0e} of it)")
+    return err
+
+
+def hold_forced_decode(arch: str, ranks, ref) -> dict:
+    """Phase 41's hold of one arch, step by step (step 0 the prefill): each
+    rank's bf16 logits at most BF16_PREFILL_RATIO times as far from the
+    f32 plain decode's as the single process's; its argmax the single
+    process's greedy token in every row whose top-2 gap there exceeds
+    twice the rank's distance from the single process's logits."""
+    single, f32, toks, gaps = (ref[k] for k in
+                               ("single", "f32", "tokens", "gaps"))
+    ulp = 2.0 ** (math.floor(math.log2(np.abs(single).max())) - 7)
+    worst, err_max, held, same = 0.0, 0.0, 0, 0
+    prefill = {"to_f32_ulps": 0.0, "logit_err_ulps": 0.0}
+    for t in range(single.shape[0]):
+        want = f32[t].astype(np.float64)
+        single_to_f32 = float(np.abs(single[t] - want).max())
+        if t == 0:
+            prefill["single_to_f32_ulps"] = single_to_f32 / ulp
+        for r, o in enumerate(ranks):
+            got = o[arch]["logits"][t]
+            to_f32 = float(np.abs(got - want).max())
+            err = float(np.abs(got - single[t]).max())
+            check(to_f32 <= BF16_PREFILL_RATIO * single_to_f32,
+                  f"{arch} rank {r} step {t}: sharded bf16 logits "
+                  f"{to_f32 / ulp:.2f} ulps from the f32 plain decode, the "
+                  f"single process's {single_to_f32 / ulp:.2f}")
+            worst = max(worst, to_f32 / single_to_f32)
+            err_max = max(err_max, err)
+            sure = gaps[:, t] > 2 * err
+            got_toks = got.argmax(-1)
+            check(np.array_equal(got_toks[sure], toks[sure, t]),
+                  f"{arch} rank {r} step {t}: sharded tokens "
+                  f"{got_toks.tolist()} != single process "
+                  f"{toks[:, t].tolist()} where the top-2 gaps "
+                  f"{gaps[:, t].tolist()} exceed 2 x {err:.4f}")
+            held += int(sure.sum())
+            same += int((got_toks == toks[:, t]).sum())
+            if t == 0:
+                prefill["to_f32_ulps"] = max(prefill["to_f32_ulps"],
+                                             to_f32 / ulp)
+                prefill["logit_err_ulps"] = max(prefill["logit_err_ulps"],
+                                                err / ulp)
+    n = single.shape[0] * single.shape[1] * len(ranks)
+    log(f"  {arch}: bf16 logits (|logit| <= {np.abs(single).max():.2f}, one "
+        f"bf16 ulp {ulp:.4g}) at the prefill: sharded {prefill['to_f32_ulps']:.2f} "
+        f"ulps from the f32 plain prefill, single process "
+        f"{prefill['single_to_f32_ulps']:.2f}, sharded against single "
+        f"{prefill['logit_err_ulps']:.2f}; over the prefill and "
+        f"{single.shape[0] - 1} teacher-forced decode steps the sharded "
+        f"distance from f32 is at most {worst:.3f}x the single process's "
+        f"(held at {BF16_PREFILL_RATIO}x), at most {err_max / ulp:.2f} ulps "
+        f"from the single process; greedy tokens equal in {same} of {n} "
+        f"(rank, step, row), held in the {held} whose top-2 gap exceeds "
+        "twice that distance")
+    return {**prefill, "logit_err": err_max, "worst_ratio_to_f32": worst,
+            "tokens_equal": same, "tokens_held": held, "tokens": n}
+
+
+def phase_sharded_serve() -> dict:
+    B, S = SHARDED_SERVE_SHAPE
+    n = SHARDED_SERVE_STEPS
+    log(f"phase 41: the sharded prefill and decode programs of "
+        f"{', '.join(SHARDED_SERVE_ARCHS)} at published widths and depth in "
+        f"bf16 (attn_impl='kernel') on the {EP_MESH} mesh of {EP_MESH[1]} "
+        f"spawned ranks sharing the card over gloo: prefill {B} x {S}, then "
+        f"{n} decode steps teacher-forced with the single process's greedy "
+        f"tokens; flash and SSD held at their per-rank shapes")
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 41)
+    errs = {"flash_attention": hold_flash(SHARDED_FA_RANK, torch.bfloat16,
+                                          gen),
+            "mamba2_ssd": hold_ssd(SHARDED_SSD_RANK, torch.bfloat16, gen,
+                                   torch.bfloat16)}
+    refs = {}
+    for arch in SHARDED_SERVE_ARCHS:
+        vocab = get_config(arch).vocab_size
+        prompts = np.random.default_rng(SEED + 41).integers(
+            0, vocab, size=(B, S), dtype=np.int64)
+        refs[arch] = sharded_serve_refs(arch, prompts)
+    t0 = time.perf_counter()
+    ranks = sharded.run_world(
+        sharded_serve_rank, EP_MESH[1],
+        {arch: refs[arch]["tokens"][:, :n] for arch in SHARDED_SERVE_ARCHS},
+        device="cuda", timeout_s=600)
+    wall = time.perf_counter() - t0
+    out = {"wall_s": wall}
+    for arch in SHARDED_SERVE_ARCHS:
+        cfg = get_config(arch)
+        kernels = ("flash_attention", "mamba2_ssd") \
+            if cfg.family == "hybrid" else ("flash_attention",)
+        f32_cut_err = hold_f32_cut(arch, ranks, refs[arch]["f32_cut"])
+        for r, o in enumerate(ranks):
+            got = o[arch]
+            check(all(got["launches"][k] > 0 for k in kernels),
+                  f"{arch} rank {r}: prefill launches {got['launches']}")
+            check(got["placed"], f"{arch} rank {r}: a cache leaf is off its "
+                  "cache_spec placement")
+            pn, ps = got["prefill_staged"]
+            dn, ds = got["decode_staged"]
+            log(f"  {arch} rank {r}: prefill {got['prefill_ms']:.1f} ms (the "
+                f"first call {got['prefill_cold_ms']:.1f}), decode "
+                f"{got['decode_ms']:.2f} ms a step (median of {n}); launches "
+                f"{got['launches']}; host-staged collectives: prefill {pn} "
+                f"({ps / (got['prefill_ms'] / 1e3):.3f} of its wall), decode "
+                f"{dn} ({ds / got['decode_s']:.3f}); peak "
+                f"{got['peak_gib']:.2f} GiB")
+        out[arch] = {
+            "prefill_ms": [o[arch]["prefill_ms"] for o in ranks],
+            "prefill_cold_ms": [o[arch]["prefill_cold_ms"] for o in ranks],
+            "decode_ms": [o[arch]["decode_ms"] for o in ranks],
+            "launches": [o[arch]["launches"] for o in ranks],
+            "staged_prefill": [o[arch]["prefill_staged"] for o in ranks],
+            "staged_decode": [o[arch]["decode_staged"] for o in ranks],
+            "peak_gib": [o[arch]["peak_gib"] for o in ranks],
+            "f32_cut_err": f32_cut_err,
+            **hold_forced_decode(arch, ranks, refs[arch])}
+    log(f"  phase 41 ranks: {wall:.1f} s")
+    log(f"  flash at internlm2's per-rank shape {SHARDED_FA_RANK[:6]}, SSD "
+        f"at zamba2's {SHARDED_SSD_RANK}:")
+    out["flash_rank_shape"] = {
+        **time_flash(SHARDED_FA_RANK, SEED + 41),
+        "max_abs_err": errs["flash_attention"]}
+    out["ssd_rank_shape"] = {**time_ssd(SHARDED_SSD_RANK, SEED + 42),
+                             "max_abs_err": errs["mamba2_ssd"]}
+    torch.cuda.empty_cache()
+    return out
+
+
+def start_dry_runs(outdir: str) -> list:
+    """Phase 42's dry runs, one subprocess a cell that sees no card (its
+    fake world needs none), one torch thread each. They start after the
+    last timed phase, so that no time above shares the host with them."""
+    import atexit
+
+    env = {**os.environ, "CUDA_VISIBLE_DEVICES": "", "OMP_NUM_THREADS": "1",
+           "PYTHONPATH": os.path.join(ROOT, "src")}
+    procs = []
+    atexit.register(stop_dry_runs, procs)
+    for arch, shape in DRY_RUN_CELLS:
+        log_path = os.path.join(outdir, f"{arch}_{shape}.log")
+        with open(log_path, "w") as f:
+            procs.append((subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+                 arch, "--shape", shape, "--mesh", "single", "--out",
+                 outdir], env=env, cwd=ROOT, stdout=f,
+                stderr=subprocess.STDOUT, start_new_session=True), log_path))
+    return procs
+
+
+def stop_dry_runs(procs) -> None:
+    """Kill the dry runs still running (each in its own session)."""
+    for p, _ in procs:
+        if p.poll() is None:
+            os.killpg(p.pid, 9)
+            p.wait()
+
+
+def phase_dry_run(procs, outdir: str) -> dict:
+    log(f"phase 42: the dry run on a fake world of 256 ranks (meta tensors, "
+        f"no card): {DRY_RUN_CELLS}")
+    t0 = time.perf_counter()
+    try:
+        for p, log_path in procs:
+            try:
+                p.wait(timeout=DRY_RUN_TIMEOUT)
+            except subprocess.TimeoutExpired:
+                check(False, f"dry run {p.args} not done {DRY_RUN_TIMEOUT} "
+                      "s into phase 42")
+            with open(log_path) as f:
+                text = f.read()
+            check(p.returncode == 0, f"dry run {p.args} exit "
+                  f"{p.returncode}: {text[-3000:]}")
+    finally:
+        stop_dry_runs(procs)
+    out = {}
+    for arch, shape in DRY_RUN_CELLS:
+        with open(os.path.join(outdir, f"{arch}_{shape}_single.json")) as f:
+            rec = json.load(f)
+        check(rec["status"] == "ok", f"dry run {arch} {shape}: "
+              f"{rec.get('error', rec.get('reason'))}")
+        r = rec["roofline"]
+        out[f"{arch} {shape}"] = {
+            "compute_s": r["compute_s"],
+            "memory_analytic_s": r["memory_analytic_s"],
+            "collective_s": r["collective_s"],
+            "dominant": r["dominant_analytic"],
+            "useful_flop_frac": rec["useful_flop_frac"],
+            "hlo_flops_per_dev": rec["hlo_flops_per_dev"],
+            "run_s": rec["t_run_s"]}
+        log(f"  {arch} {shape}: compute {r['compute_s']:.4g} s, memory "
+            f"(analytic) {r['memory_analytic_s']:.4g} s, collective "
+            f"{r['collective_s']:.4g} s, dominant {r['dominant_analytic']}; "
+            f"useful_flop_frac {rec['useful_flop_frac']:.4f}; "
+            f"{rec['t_run_s']:.1f} s to run the cell")
+    log(f"  phase 42: waited {time.perf_counter() - t0:.1f} s for the dry "
+        "runs")
     return out
 
 
@@ -3365,6 +3826,23 @@ def main() -> None:
         "launches": ep["launches"]["flash_attention"]}
     sharded_train = phase_sharded_train()
     train_archs = phase_train_archs()
+    sharded_serve = phase_sharded_serve()
+    for arch in SHARDED_SERVE_ARCHS:
+        paths[f"{arch} sharded prefill, {EP_MESH[1]} ranks"] = {
+            "launches": sum(r["flash_attention"]
+                            for r in sharded_serve[arch]["launches"])}
+    ssd["launches_by_path"] = {
+        HYBRID_ARCH: ssd["launches"],
+        f"{HYBRID_ARCH} sharded prefill, {EP_MESH[1]} ranks": sum(
+            r["mamba2_ssd"] for r in sharded_serve[HYBRID_ARCH]["launches"])}
+    ssd["launches"] = sum(ssd["launches_by_path"].values())
+    flash["sharded_rank_shape"] = sharded_serve.pop("flash_rank_shape")
+    ssd["sharded_rank_shape"] = sharded_serve.pop("ssd_rank_shape")
+    import shutil
+    import tempfile
+    dry_dir = tempfile.mkdtemp(prefix="dryrun-")
+    dry_run = phase_dry_run(start_dry_runs(dry_dir), dry_dir)
+    shutil.rmtree(dry_dir, ignore_errors=True)
     paths["fabric shard, " + LM_ARCH] = fabric["flash"]
     kernel["launches_by_path"]["pool worker re-score"] = \
         fabric["mpnn_mp"]["launches"]
@@ -3383,6 +3861,8 @@ def main() -> None:
     log(f"ep: {json.dumps(ep['summary'])}")
     log(f"sharded train: {json.dumps(sharded_train)}")
     log(f"train archs: {json.dumps(train_archs)}")
+    log(f"sharded serve: {json.dumps(sharded_serve)}")
+    log(f"dry run: {json.dumps(dry_run)}")
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     log(json.dumps({"kernels": [{
         "name": "mpnn_mp", "route": "cuda",

@@ -6,9 +6,9 @@ defaults included) and of its ``get_config``. Each ported arch has a module
 ``reduced()`` (a tiny same-family config for CPU tests), copied from the JAX
 package. The port runs all ten archs of the JAX package's registry.
 
-``ShapeConfig``, ``ShardingConfig``, ``TrainConfig``, ``param_count``,
-``active_param_count`` and ``model_flops_per_token`` are copies of the JAX
-package's too. On one device only ``ShardingConfig.microbatches`` acts, as
+``ShapeConfig``, ``SHAPES``, ``shape_applicable``, ``ShardingConfig``,
+``TrainConfig``, ``list_archs``, ``param_count``, ``active_param_count`` and
+``model_flops_per_token`` are copies of the JAX package's too. On one device only ``ShardingConfig.microbatches`` acts, as
 in the JAX package on a one-device mesh; on a mesh
 (``launch/steps.build_program``) ``mode`` and ``zero`` act too.
 """
@@ -113,6 +113,27 @@ class ShapeConfig:
     global_batch: int
 
 
+# The dry run's cells (``launch/dryrun.py``): every arch is paired with
+# these four shapes.
+SHAPES = {
+    "train_4k":    ShapeConfig("train_4k",    "train",   4_096,   256),
+    "prefill_32k": ShapeConfig("prefill_32k", "prefill", 32_768,  32),
+    "decode_32k":  ShapeConfig("decode_32k",  "decode",  32_768,  128),
+    "long_500k":   ShapeConfig("long_500k",   "decode",  524_288, 1),
+}
+
+# long_500k requires sub-quadratic context handling: run only for SSM /
+# hybrid / linear-attention families.
+LONG_CONTEXT_FAMILIES = ("hybrid", "ssm")
+
+
+def shape_applicable(cfg: ModelConfig, shape: ShapeConfig) -> Tuple[bool, str]:
+    """Whether (arch, shape) is a valid dry-run cell; reason when not."""
+    if shape.name == "long_500k" and cfg.family not in LONG_CONTEXT_FAMILIES:
+        return False, "long_500k skipped: full-attention arch (sub-quadratic required)"
+    return True, ""
+
+
 @dataclass(frozen=True)
 class ShardingConfig:
     mode: str = "dp_tp"        # dp_tp (params replicated over data) | fsdp_tp
@@ -159,6 +180,10 @@ def get_config(arch_id: str, reduced: bool = False) -> ModelConfig:
     mod = importlib.import_module(
         "repro_torch.configs." + arch_id.replace("-", "_").replace(".", "_"))
     return mod.reduced() if reduced else mod.CONFIG
+
+
+def list_archs():
+    return list(ARCH_IDS)
 
 
 # ---------------------------------------------------------------------------

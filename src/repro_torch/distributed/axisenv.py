@@ -16,6 +16,10 @@ plain tensor, it is the identity, so every single-device path is unchanged.
 Under an environment a plain tensor stands for a value that every rank holds
 whole (replicated).
 
+``zeros`` allocates a decode cache or state the same way: whole, except
+under the environment of a sharded program, where it is a DTensor at the
+resolved placements of which each rank allocates only its own shard.
+
 Pinning these points gives DTensor's sharding propagation the part GSPMD
 plays in the JAX package, and gives an op that DTensor has no strategy for
 a placement that it has.
@@ -34,15 +38,36 @@ def _env():
 
 @contextmanager
 def activation_axes(*, batch=(), batch_sizes=(), model=None, model_size=1,
-                    mesh=None):
+                    mesh=None, sharded=False):
     """batch: tuple of mesh axis names; model: mesh axis name or None;
     mesh: the DeviceMesh (needed by shard_map-based layers and by
-    ``constrain``)."""
+    ``constrain``); sharded: the activations are DTensors (a
+    ``launch/steps.build_program`` step), so ``zeros`` allocates caches as
+    DTensors too."""
     prev = _env()
     _tls.env = {
         "batch": tuple(batch), "batch_size": int(_prod(batch_sizes)),
         "model": model, "model_size": int(model_size), "mesh": mesh,
+        "sharded": sharded,
     }
+    try:
+        yield
+    finally:
+        _tls.env = prev
+
+
+def current():
+    """The installed environment (None without one), for ``installed``."""
+    return _env()
+
+
+@contextmanager
+def installed(env):
+    """Install an environment ``current`` returned, on this thread: the
+    recompute of a rematerialised block, which autograd may run on its own
+    device thread, sees the forward's axes."""
+    prev = _env()
+    _tls.env = env
     try:
         yield
     finally:
@@ -88,3 +113,29 @@ def constrain(x, *logical):
     assert len(logical) == x.ndim, (logical, x.shape)
     spec = tuple(resolve(l, d) for l, d in zip(logical, x.shape))
     return x.redistribute(env["mesh"], sharding.placements(spec, env["mesh"]))
+
+
+def zeros(shape, *logical, dtype, device):
+    """``torch.zeros(shape)``; under the environment of a sharded program, a
+    DTensor of zeros at the placements resolved from the logical names (as
+    ``constrain`` resolves them), each rank allocating only its own shard."""
+    import torch
+
+    env = _env()
+    if env is None or not env["sharded"]:
+        return torch.zeros(shape, dtype=dtype, device=device)
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+
+    from repro_torch.distributed import sharding
+
+    assert len(logical) == len(shape), (logical, shape)
+    mesh = env["mesh"]
+    pl = sharding.placements(
+        tuple(resolve(l, d) for l, d in zip(logical, shape)), mesh)
+    local, _ = compute_local_shape_and_global_offset(shape, mesh, pl)
+    t = torch.zeros(local, dtype=dtype, device=device)
+    return DTensor.from_local(t, mesh, pl, run_check=False,
+                              shape=torch.Size(shape),
+                              stride=torch.empty(shape, device="meta").stride())

@@ -12,8 +12,9 @@ H100), but DTensor redistributes through the functional collectives
 ``stage_cuda_collectives`` registers, for the CUDA dispatch key, kernels of
 those functional collectives that ALWAYS copy the operand to the host, run
 gloo's CPU collective on the group, and copy the result back. ``STAGED``
-counts them. Such a run's collectives therefore cross the host: their times
-say nothing about an interconnect. CPU ranks (the tests) need none of it.
+counts them and ``STAGED_S`` sums their seconds. Such a run's collectives
+therefore cross the host: their times say nothing about an interconnect.
+CPU ranks (the tests) need none of it.
 
     init_world(rank, world_size, "file:///tmp/rdv")
     stage_cuda_collectives()          # ranks that share the card only
@@ -21,12 +22,15 @@ say nothing about an interconnect. CPU ranks (the tests) need none of it.
 from __future__ import annotations
 
 import datetime
+import time
 
 import torch
 import torch.distributed as dist
 
-# host-staged functional collectives, by op name
+# host-staged functional collectives, by op name: their count, and the
+# seconds they took on the host clock (copies and gloo call included)
 STAGED = {}
+STAGED_S = {}
 _LIB = []          # the torch.library registrations (kept alive)
 
 _OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX,
@@ -49,6 +53,18 @@ def _group(name):
 
 def _count(name):
     STAGED[name] = STAGED.get(name, 0) + 1
+
+
+def _timed(name, fn):
+    """``fn``, its host seconds summed in ``STAGED_S[name]``."""
+    def run(*args):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args)
+        finally:
+            STAGED_S[name] = STAGED_S.get(name, 0.0) + (
+                time.perf_counter() - t0)
+    return run
 
 
 def _reduce(h, op: str, group):
@@ -99,16 +115,19 @@ def stage_cuda_collectives() -> None:
     if _LIB:
         return
     lib = torch.library.Library("_c10d_functional", "IMPL")
-    lib.impl("all_gather_into_tensor", _all_gather, "CUDA")
-    lib.impl("all_gather_into_tensor_coalesced",
-             lambda xs, n, name: [_all_gather(x, n, name) for x in xs], "CUDA")
-    lib.impl("reduce_scatter_tensor", _reduce_scatter, "CUDA")
-    lib.impl("reduce_scatter_tensor_coalesced",
-             lambda xs, op, n, name: [_reduce_scatter(x, op, n, name)
-                                      for x in xs], "CUDA")
-    lib.impl("all_reduce", _all_reduce, "CUDA")
-    lib.impl("all_reduce_coalesced",
-             lambda xs, op, name: [_all_reduce(x, op, name) for x in xs],
-             "CUDA")
-    lib.impl("all_to_all_single", _all_to_all, "CUDA")
+    impls = {
+        "all_gather_into_tensor": _all_gather,
+        "all_gather_into_tensor_coalesced":
+            lambda xs, n, name: [_all_gather(x, n, name) for x in xs],
+        "reduce_scatter_tensor": _reduce_scatter,
+        "reduce_scatter_tensor_coalesced":
+            lambda xs, op, n, name: [_reduce_scatter(x, op, n, name)
+                                     for x in xs],
+        "all_reduce": _all_reduce,
+        "all_reduce_coalesced":
+            lambda xs, op, name: [_all_reduce(x, op, name) for x in xs],
+        "all_to_all_single": _all_to_all,
+    }
+    for name, fn in impls.items():
+        lib.impl(name, _timed(name, fn), "CUDA")
     _LIB.append(lib)

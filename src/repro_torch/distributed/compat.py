@@ -62,7 +62,7 @@ def shard_map(f, *, mesh, in_specs, out_specs):
 
     outs = tuple(placements(s, mesh) for s in specs)
     return local_map(
-        body, out_placements=outs[0] if single else outs,
+        body, out_placements=list(outs[0]) if single else outs,
         in_placements=tuple(placements(s, mesh) for s in in_specs),
         in_grad_placements=tuple(grad_placements(s) for s in in_specs),
         device_mesh=mesh, redistribute_inputs=True)

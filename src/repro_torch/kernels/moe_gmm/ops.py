@@ -32,11 +32,20 @@ def gmm(xe, w, *, impl: str | None = None, live=None):
     groups whose rows of xe are not all zero: the kernel skips the others
     (zeros, no weight read); the plain version is not given it and computes
     every group, which gives the same zeros."""
+    if dispatch.sharded(xe, w, live):
+        experts = {"experts": 0}
+        return dispatch.run_local(
+            "moe_gmm", lambda a, b, l: gmm(a, b, impl=impl, live=l),
+            (xe, w, live), (experts,) * 3, {"ndim": 3, **experts})
     impl = dispatch.resolve(impl, "moe_gmm", xe, w)
     if impl == "kernel":
         return moe_gmm.gmm_cuda(xe, w, live)
     if impl == "ref":
         return gmm_reference(xe, w)
+    if impl == "meta":
+        G, M, D = xe.shape
+        dispatch.add_flops(2 * G * M * D * w.shape[-1])
+        return xe.new_empty((G, M, w.shape[-1]))
     raise ValueError(f"unknown impl {impl!r}")
 
 

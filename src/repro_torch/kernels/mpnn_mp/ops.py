@@ -15,6 +15,11 @@ def message_pass(h, edge_mat, adj, *, impl: str | None = None):
     or when an input takes part in a gradient (``kernels/dispatch.py``);
     impl="ref" is the plain version; None picks the kernel for CUDA tensors
     and the plain version for CPU tensors."""
+    if dispatch.sharded(h, edge_mat, adj):
+        batch = {"batch": 0}
+        return dispatch.run_local(
+            "mpnn_mp", lambda *t: message_pass(*t, impl=impl),
+            (h, edge_mat, adj), (batch,) * 3, {"ndim": 3, **batch})
     impl = dispatch.resolve(impl, "mpnn_mp", h, edge_mat, adj)
     if impl == "kernel":
         return mpnn_mp.message_pass_cuda(
@@ -22,4 +27,8 @@ def message_pass(h, edge_mat, adj, *, impl: str | None = None):
             adj.to(torch.float32).contiguous())
     if impl == "ref":
         return message_pass_reference(h, edge_mat, adj)
+    if impl == "meta":
+        B, N, Hd = h.shape
+        dispatch.add_flops(2 * B * N * N * Hd * Hd)
+        return torch.empty_like(h)
     raise ValueError(f"unknown impl {impl!r}")

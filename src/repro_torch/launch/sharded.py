@@ -25,6 +25,12 @@ The jobs, each at an arch's reduced config on a ("data", "model") mesh of
 - ``psum_job``: ``optim.compress.psum_compressed`` over the "model" axis
   group, twice, carrying the error feedback; returns every rank's means and
   errors.
+- ``serve_job``: the sharded prefill (``build_program("prefill")``), then
+  ``shard_cache`` and ``payload["tokens"]``' decode steps
+  (``build_program("decode")``), one column of the given tokens a step;
+  returns the logits of prefill and of every step, the whole cache after
+  them (rank 0), and whether every cache leaf's placement equals its
+  ``cache_spec``.
 - ``batch_job``: a list of (job name, payload) in order, in one world.
 
 Payloads and results are numpy (pickled across the queue). ``device``
@@ -277,7 +283,51 @@ def psum_job(rank, world_size, payload, device):
     return out
 
 
-JOBS = {"train": train_job, "moe": moe_job, "psum": psum_job}
+def serve_job(rank, world_size, payload, device):
+    """payload: arch, config overrides, mesh, mode, params (numpy tree),
+    batch (numpy: the prompt's model inputs), tokens (B, n) int32: the
+    token fed at each of the n decode steps."""
+    from repro_torch.launch import steps
+    from repro_torch.models import convert
+
+    cfg = _config(payload)
+    mesh = _mesh(payload, device)
+    sc = ShardingConfig(mode=payload["mode"])
+    batch = _tensors(payload["batch"], device)
+    feed = _tensors(payload["tokens"], device)
+    lead = batch["embeds"] if "embeds" in batch else batch["tokens"]
+    B, S = lead.shape[:2]
+    n = feed.shape[1]
+    pre_shape = ShapeConfig("prefill", "prefill", S, B)
+    dec_shape = ShapeConfig("decode", "decode", S + n, B)
+    params = convert.lm_params_from_numpy(payload["params"], cfg, device)
+    params = steps.shard_tree(
+        params, steps.state_shardings(cfg, mesh, sc)["params"], mesh)
+    in_specs = steps.input_shardings(cfg, pre_shape, mesh, sc.mode)
+    batch = steps.shard_tree(batch, in_specs["batch"], mesh)
+    prefill, _ = steps.build_program(cfg, pre_shape, mesh, sc=sc)
+    decode, _ = steps.build_program(cfg, dec_shape, mesh, sc=sc)
+    tok_spec = steps.input_shardings(cfg, dec_shape, mesh, sc.mode)["tokens"]
+    with torch.no_grad():
+        logits, cache = prefill(params, batch)
+        out = [whole(logits)]
+        cache = steps.shard_cache(cache, cfg, dec_shape, mesh)
+        for t in range(n):
+            tok = steps.shard_tree(feed[:, t:t + 1].contiguous(), tok_spec,
+                                   mesh)
+            logits, cache = decode(params, cache, tok, S + t)
+            out.append(whole(logits))
+    specs = steps.input_shardings(cfg, dec_shape, mesh, sc.mode)["cache"]
+    res = {"placed": placements_match(cache, specs, mesh)}
+    full = steps.full_tree(cache)
+    if rank == 0:
+        res["logits"] = [o.cpu().numpy() for o in out]
+        res["cache"] = _numpy(full)
+    return res
+
+
+JOBS = {"train": train_job, "moe": moe_job, "psum": psum_job,
+        "serve": serve_job}
 
 
 def batch_job(rank, world_size, payload, device):

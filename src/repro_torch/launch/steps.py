@@ -1,5 +1,5 @@
-"""The train state, the train step, and the sharded train program: the
-port of ``repro/launch/steps.py``.
+"""The train state, the train step, the prefill and decode programs, and
+their sharded forms: the port of ``repro/launch/steps.py``.
 
     state = init_state(cfg, generator, device)   # {"params", "opt"}
     step = make_train_step(cfg, tc, sc)
@@ -17,15 +17,30 @@ state's device: loss, ce, aux, tokens, grad_norm, lr, skipped.
 
 On a mesh (a torch ``DeviceMesh`` over the ranks of a process group)
 ``build_program(cfg, shape, mesh, tc=, sc=)`` gives the step every rank
-runs: the params are DTensors placed by ``state_shardings`` (their
-``tree_specs``, and the AdamW moments ``zero_spec`` under ZeRO-1), the batch
-is sharded by ``batch_axes``, and the same plain model and AdamW code runs
-on them, with the axis environment installed so that the model's
+runs, for the cell's kind:
+
+- ``"train"``: ``step(state, batch)``; the params are DTensors placed by
+  ``state_shardings`` (their ``tree_specs``, and the AdamW moments
+  ``zero_spec`` under ZeRO-1), the batch is sharded by ``batch_axes``, and
+  the same plain model and AdamW code runs on them;
+- ``"prefill"``: ``prefill(params, batch, reserve=None)`` on the same
+  params and batch placements; returns the last-position logits and a cache
+  at the activations' placements (``axisenv.zeros``), with room for
+  ``reserve`` positions;
+- ``"decode"``: ``decode_step(params, cache, tokens, cur_len)`` on the
+  cache placed leaf by leaf by ``cache_spec`` over ``cache_axes``, tokens
+  by ``batch_axes`` and ``cur_len`` a Python int (replicated). The new K/V
+  and states are written IN PLACE into each rank's shards of the DTensor
+  cache, which comes back with the same placements (the JAX program donates
+  it). ``shard_cache`` puts the cache prefill returns on these placements
+  once, before the first step.
+
+Each runs with the axis environment installed, so that the model's
 ``axisenv.constrain`` points pin activations as the JAX program's
-``with_sharding_constraint`` does. DTensor's sharding propagation plays
-GSPMD's part; every gradient is brought to its parameter's placement.
+``with_sharding_constraint`` does; DTensor's sharding propagation plays
+GSPMD's part, and every gradient is brought to its parameter's placement.
 ``shard_tree`` and ``full_tree`` move trees between whole tensors and
-DTensors. Only the ``"train"`` kind is built.
+DTensors.
 """
 from __future__ import annotations
 
@@ -135,13 +150,14 @@ def _with_axisenv(fn, mesh, global_batch, mode="dp_tp"):
     # in dp_only mode no tensor axis lives on "model"
     model = "model" if "model" in sizes and mode != "dp_only" else None
 
-    def wrapped(*args):
+    def wrapped(*args, **kw):
         with axisenv.activation_axes(batch=bax,
                                      batch_sizes=[sizes[a] for a in bax],
                                      model=model,
                                      model_size=sizes.get("model", 1),
-                                     mesh=mesh), implicit_replication():
-            return fn(*args)
+                                     mesh=mesh, sharded=True), \
+                implicit_replication():
+            return fn(*args, **kw)
     return wrapped
 
 
@@ -286,14 +302,47 @@ def full_tree(tree):
                     else t, tree)
 
 
+def make_prefill(cfg: ModelConfig):
+    def prefill(params, batch, reserve=None):
+        return api.prefill(params, cfg, batch, reserve=reserve)
+    return prefill
+
+
+def make_decode_step(cfg: ModelConfig):
+    def decode_step(params, cache, tokens, cur_len):
+        return api.decode_step(params, cfg, cache, tokens, cur_len)
+    return decode_step
+
+
+def shard_cache(cache, cfg: ModelConfig, shape, mesh):
+    """The cache ``prefill`` returned, on the decode placements of
+    ``input_shardings(cfg, shape, mesh)["cache"]``, with room for
+    ``shape.seq_len`` positions (``api.grow_cache``). Each leaf is
+    redistributed once; the sequence axis is never sharded, so the growth
+    is each rank's own."""
+    from torch.distributed.tensor import DTensor
+
+    specs = input_shardings(cfg, shape, mesh)["cache"]
+    cache = api.grow_cache(cfg, cache, shape.seq_len)
+
+    def place(t, spec):
+        pl = shd.placements(spec, mesh)
+        if not isinstance(t, DTensor):
+            return shard_tree(t, spec, mesh)
+        return t if tuple(t.placements) == pl else t.redistribute(mesh, pl)
+
+    return _map_axes(lambda spec, t: place(t, spec), specs, cache)
+
+
 def build_program(cfg: ModelConfig, shape, mesh, *,
                   tc: Optional[TrainConfig] = None,
                   sc: Optional[ShardingConfig] = None):
-    """Returns (step, example args as (shape, dtype) trees) for a
-    ``"train"`` cell: ``step(state, batch)`` runs on every rank of
-    ``mesh``, on the DTensors of ``shard_tree(state, state_shardings(...))``
-    and ``shard_tree(batch, input_shardings(...)["batch"])``, and updates
-    the state in place as ``make_train_step`` does."""
+    """Returns (step, example args as (shape, dtype) trees) for the cell's
+    kind (see the module docstring): the train step on
+    ``shard_tree(state, state_shardings(...))`` and
+    ``shard_tree(batch, input_shardings(...)["batch"])``; prefill on the
+    params and batch placed alike; decode on those params and the cache of
+    ``shard_cache``."""
     tc = tc or TrainConfig()
     sc = sc or ShardingConfig()
     specs = input_specs(cfg, shape)
@@ -301,6 +350,13 @@ def build_program(cfg: ModelConfig, shape, mesh, *,
         fn = _with_axisenv(make_train_step(cfg, tc, sc), mesh,
                            shape.global_batch, sc.mode)
         return fn, (abstract_state(cfg), specs["batch"])
-    raise NotImplementedError(
-        f"the sharded {shape.kind!r} program is not ported yet; only "
-        "'train' is built")
+    if shape.kind == "prefill":
+        fn = _with_axisenv(make_prefill(cfg), mesh, shape.global_batch,
+                           sc.mode)
+        return fn, (api.abstract_params(cfg), specs["batch"])
+    if shape.kind == "decode":
+        fn = _with_axisenv(make_decode_step(cfg), mesh, shape.global_batch,
+                           sc.mode)
+        return fn, (api.abstract_params(cfg), specs["cache"],
+                    specs["tokens"], specs["cur_len"])
+    raise ValueError(shape.kind)

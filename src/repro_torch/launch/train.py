@@ -35,9 +35,8 @@ from repro_torch.configs.base import (ShardingConfig, TrainConfig, get_config,
 from repro_torch.data.loader import PrefetchLoader
 from repro_torch.data.tokens import make_batch
 from repro_torch.launch import steps
-
-# H100 SXM dense bf16 tensor-core peak (data sheet, 700 W)
-PEAK_FLOPS = 989e12
+# H100 SXM datasheet bf16 dense peak (H100 80GB HBM3, 700 W)
+from repro_torch.launch.hlo_analysis import PEAK_FLOPS
 
 
 def train(arch: str, *, reduced: bool = True, steps_total: int = 50,

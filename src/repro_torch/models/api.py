@@ -166,13 +166,23 @@ def decode_step(params, cfg: ModelConfig, cache, tokens, cur_len):
 def grow_cache(cfg: ModelConfig, cache, new_capacity: int):
     """Pad the attention KV cache with zeros along the sequence axis (axis 2)
     to ``new_capacity``; a cache that is already large enough is returned as
-    it is. The Mamba2 conv and SSM states, the RWKV6 token shifts and WKV
-    states and the enc-dec cross K/V do not grow with the sequence and pass
-    through."""
+    it is; a DTensor cache is padded shard by shard. The Mamba2 conv and SSM
+    states, the RWKV6 token shifts and WKV states and the enc-dec cross K/V
+    do not grow with the sequence and pass through."""
     def pad(t):
         cap = t.shape[2]
         if cap >= new_capacity:
             return t
+        if hasattr(t, "device_mesh"):
+            # a DTensor: the sequence axis is never sharded, so each rank
+            # pads its own shard and the placements stay as they are
+            from torch.distributed.tensor import DTensor
+            assert not any(p.is_shard(2) for p in t.placements), t.placements
+            shape = t.shape[:2] + (new_capacity,) + t.shape[3:]
+            return DTensor.from_local(
+                pad(t.to_local()), t.device_mesh, t.placements,
+                run_check=False, shape=shape,
+                stride=torch.empty(shape, device="meta").stride())
         out = t.new_zeros(t.shape[:2] + (new_capacity,) + t.shape[3:])
         out[:, :, :cap] = t
         return out

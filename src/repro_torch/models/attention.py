@@ -27,6 +27,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed import axisenv
+from repro_torch.kernels import dispatch
 from repro_torch.models.layers import _lead, apply_rope, dtype_of, rmsnorm_head
 
 NEG_INF = -1e30
@@ -106,32 +107,13 @@ def mha_reference(q, k, v, *, causal: bool = True,
 
     def kv_chunk(t, k0, k1):
         c = t[:, k0:k1]
-        if G == 1:
-            return c                                          # (B,ck,H,hd)
-        # on a mesh: the repeated heads take q's layout (KV heads too few
-        # to shard are repeated whole, and the repeat's backward cannot
-        # fold a sharded head axis back into (KVH, G))
-        return axisenv.constrain(c.repeat_interleave(G, dim=2),
-                                 "batch", None, "model", None)
-
-    # the einsums flatten (B, heads) into one batch axis; on a mesh whose
-    # heads alone are sharded, heads lead it (and the result is transposed
-    # back): DTensor folds a flattened axis back only when its sharded part
-    # leads. The products are the same either way.
-    pl = getattr(qf, "placements", ())
-    heads_lead = (any(p.is_shard(2) for p in pl)
-                  and not any(p.is_shard(0) for p in pl))
+        return c if G == 1 else c.repeat_interleave(G, dim=2)  # (B,ck,H,hd)
 
     def pv(p, vc):
-        if heads_lead:
-            return torch.einsum("bhij,bjhd->hbid", p, vc).permute(1, 2, 0, 3)
         return torch.einsum("bhij,bjhd->bihd", p, vc)
 
     def scores(qc, kc, qpos, kpos):
-        if heads_lead:
-            s = torch.einsum("bihd,bjhd->hbij", qc, kc).transpose(0, 1)
-        else:
-            s = torch.einsum("bihd,bjhd->bhij", qc, kc)
+        s = torch.einsum("bihd,bjhd->bhij", qc, kc)
         if softcap is not None:
             s = softcap * torch.tanh(s / softcap)
         return torch.where(_mask(qpos, kpos, causal, window, valid_len),
@@ -171,16 +153,45 @@ def mha_reference(q, k, v, *, causal: bool = True,
     return torch.cat(out_chunks, dim=1).to(q.dtype)
 
 
+def _local_kv(q, k, v):
+    """K/V for attention on each rank's heads: where the model axis shards
+    q's heads but the K/V heads are too few to shard, K/V repeated to q's
+    heads and sharded alike (as ``mha_reference`` repeats them)."""
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(q, DTensor) or not isinstance(k, DTensor):
+        return k, v
+    mesh = q.device_mesh
+    uneven = any(pq.is_shard(2) and not pk.is_shard(2)
+                 and k.shape[2] % mesh.size(m)
+                 for m, (pq, pk) in enumerate(zip(q.placements, k.placements)))
+    if not uneven:
+        return k, v
+    G = q.shape[2] // k.shape[2]
+    return tuple(axisenv.constrain(t.repeat_interleave(G, dim=2),
+                                   "batch", None, "model", None) for t in (k, v))
+
+
 def attend(q, k, v, *, cfg: ModelConfig, causal=True, window=None,
            q_offset=0, valid_len=None):
     """Dispatch between the flash-attention kernel and ``mha_reference``
-    (see the module docstring for which calls take the kernel)."""
+    (see the module docstring for which calls take the kernel). On a mesh
+    either runs on each rank's batch rows and heads
+    (``kernels/dispatch.run_local``)."""
     if (cfg.attn_impl == "kernel" and isinstance(q_offset, int)
             and valid_len is None and q.shape[1] > 1):
         from repro_torch.kernels.flash_attention import ops as fa_ops
+        k, v = _local_kv(q, k, v)
         return fa_ops.attention(q, k, v, causal=causal, window=window,
                                 softcap=cfg.attn_logit_softcap,
                                 q_offset=q_offset)
+    if dispatch.sharded(q, k, v):
+        heads = {"batch": 0, "heads": 2}
+        return dispatch.run_local(
+            "attention", lambda *t: attend(*t, cfg=cfg, causal=causal,
+                                           window=window, q_offset=q_offset,
+                                           valid_len=valid_len),
+            (q, *_local_kv(q, k, v)), (heads,) * 3, {"ndim": 4, **heads})
     return mha_reference(
         q, k, v, causal=causal, window=window,
         softcap=cfg.attn_logit_softcap, q_offset=q_offset,
@@ -195,7 +206,16 @@ def attend(q, k, v, *, cfg: ModelConfig, causal=True, window=None,
 def _proj(x, w):
     """x (B,S,D) @ w (D,N,hd) -> (B,S,N,hd)."""
     D, N, hd = w.shape
-    return (x @ w.reshape(D, N * hd)).view(*x.shape[:-1], N, hd)
+    w = w.reshape(D, N * hd)
+    uneven = axisenv.resolve("model", N) is None
+    if uneven:
+        # on a mesh whose model axis cannot shard N heads, the views to
+        # and from heads (of y, and of w's gradient) need N*hd whole
+        w = axisenv.constrain(w, None, None)
+    y = x @ w
+    if uneven:
+        y = axisenv.constrain(y, "batch", *([None] * (y.ndim - 1)))
+    return y.view(*x.shape[:-1], N, hd)
 
 
 def project_qkv(params, x, cfg: ModelConfig, cos=None, sin=None):
@@ -222,7 +242,13 @@ def output_proj(params, o, cfg: ModelConfig):
     H, hd, D = params["wo"].shape
     w = params["wo"].to(dtype_of(cfg.compute_dtype)).reshape(H * hd, D)
     o = axisenv.constrain(o, "batch", None, "model", None)
-    out = o.reshape(*o.shape[:2], H * hd) @ w
+    o = o.reshape(*o.shape[:2], H * hd)
+    if axisenv.resolve("model", H) is None:
+        # H heads too few to shard: the gradients' views back to heads
+        # need the H*hd axis whole
+        o = axisenv.constrain(o, "batch", None, None)
+        w = axisenv.constrain(w, None, None)
+    out = o @ w
     return axisenv.constrain(out, "batch",
                              "seq" if cfg.seq_parallel else None, None)
 
@@ -267,8 +293,10 @@ def encode_cross_kv(params, enc_out, cfg: ModelConfig):
 
 def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, layers: int,
                   dtype=None, device="cuda"):
-    """KV cache stacked over layers: {k, v} of (L, B, S_max, KVH, hd)."""
+    """KV cache stacked over layers: {k, v} of (L, B, S_max, KVH, hd) (under
+    an axis environment, a DTensor at the activations' placements)."""
     dt = dtype or dtype_of(cfg.compute_dtype)
     shape = (layers, batch, max_len, cfg.num_kv_heads, cfg.resolved_head_dim)
-    return {"k": torch.zeros(shape, dtype=dt, device=device),
-            "v": torch.zeros(shape, dtype=dt, device=device)}
+    axes = (None, "batch", None, "kv", None)
+    return {"k": axisenv.zeros(shape, *axes, dtype=dt, device=device),
+            "v": axisenv.zeros(shape, *axes, dtype=dt, device=device)}

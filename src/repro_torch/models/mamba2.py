@@ -15,6 +15,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import axisenv
 from repro_torch.kernels.mamba2_ssd import ops as ssd_ops
 from repro_torch.models.layers import _lead, dtype_of, rmsnorm
 
@@ -110,7 +111,14 @@ def mamba_block(params, x, cfg: ModelConfig, cache=None):
     xin_c, b_c, c_c, dt, log_a = _ssm_inputs(params, xin_c, b_c, c_c,
                                              dt_raw, cfg)
 
+    if axisenv.resolve("model", H) is None:
+        # on a mesh whose model axis cannot shard H heads, the reshapes
+        # need the d_inner axis whole
+        xin_c = axisenv.constrain(xin_c, "batch", None, None)
     xh = (xin_c.float().reshape(B, L, H, P) * dt[..., None]).to(cd)
+    # on a mesh the scan runs on each rank's heads (the model axis)
+    xh = axisenv.constrain(xh, "batch", None, "model", None)
+    log_a = axisenv.constrain(log_a, "batch", None, "model")
     bg = b_c.reshape(B, L, G, N)
     cg = c_c.reshape(B, L, G, N)
     s0 = cache["ssm"] if cache is not None else None
@@ -135,13 +143,17 @@ def mamba_block(params, x, cfg: ModelConfig, cache=None):
 def init_mamba_cache(cfg: ModelConfig, batch: int, layers: int,
                      device="cuda"):
     """Decode states stacked over layers: conv (L, B, W-1, C) in the compute
-    dtype and ssm (L, B, H, P, N) in f32."""
+    dtype and ssm (L, B, H, P, N) in f32 (DTensors under an axis
+    environment)."""
     d_inner, H, P, G = mamba_dims(cfg)
     N, W = cfg.ssm_state, cfg.ssm_conv
     conv_ch = d_inner + 2 * G * N
     return {
-        "conv": torch.zeros(layers, batch, W - 1, conv_ch,
-                            dtype=dtype_of(cfg.compute_dtype), device=device),
-        "ssm": torch.zeros(layers, batch, H, P, N, dtype=torch.float32,
-                           device=device),
+        "conv": axisenv.zeros((layers, batch, W - 1, conv_ch),
+                              None, "batch", None, "model",
+                              dtype=dtype_of(cfg.compute_dtype),
+                              device=device),
+        "ssm": axisenv.zeros((layers, batch, H, P, N),
+                             None, "batch", "model", None, None,
+                             dtype=torch.float32, device=device),
     }

@@ -8,10 +8,10 @@ Implementations, selected by ``cfg.moe_impl`` as in the JAX package:
   The slots of all rows are gathered expert-major into (E, B*C, D), the
   per-expert FFN runs on them, and the results are gathered back. Tokens
   past an expert's capacity C are dropped (the residual stream passes them
-  through). The JAX package keeps a batch-major (B, E, C, D) buffer; the
-  port's expert-major buffer takes the same sharding constraints (experts
-  over "model", batch rows over the data axes) at the same points, and
-  each output row is the same dot product either way.
+  through). The JAX package keeps a batch-major (B, E, C, D) buffer and
+  constrains it (experts over "model", batch rows over the data axes); on
+  a mesh the port runs the same body in ``shard_map`` on each rank's rows
+  and experts, and each output row is the same dot product either way.
 - ``einsum``: the GShard one-hot dispatch/combine einsums; the same
   semantics as ``dropping`` at O(T*E*C*D) cost, for tiny shapes.
 - ``dense``: every expert for every token, mixed by the router weights (no
@@ -144,33 +144,111 @@ def dispatch(params, x, cfg: ModelConfig, expert_ffn, *,
     ``pass_live``, expert_ffn also gets ``live`` (E,) bool: whether expert e
     holds a token in some row. The rows of an expert that holds none are all
     the zero row, and the kernel path skips it. It is computed on the
-    device, with no host sync."""
-    B, S, D = x.shape
+    device, with no host sync. A DTensor ``x`` runs ``_dispatch_rows`` on
+    each rank's rows in ``shard_map`` (``_dispatch_on_mesh``); a plain one
+    runs it on the whole batch."""
+    if hasattr(x, "device_mesh"):
+        return _dispatch_on_mesh(params, x, cfg, expert_ffn, pass_live)
+    return _dispatch_rows(x, params, cfg, expert_ffn, pass_live)
+
+
+def _dispatch_rows(x, w, cfg: ModelConfig, expert_ffn, pass_live, *,
+                   e0: int = 0, tokens: int | None = None, psum=None):
+    """The dispatch of the rows of ``x`` (b, S, D) over all E experts, with
+    the products of experts e0 .. e0 + e_loc only (e_loc the leading dim of
+    ``w["wi_gate"]``). On one device that is all of ``dispatch``; in
+    ``shard_map`` it is one rank's share. ``psum(t, over)`` sums t over
+    the ranks that hold the other rows (over "batch": the aux loss's token
+    and gate sums) or the other experts (over "model": the outputs);
+    ``tokens`` is the token count of the whole batch (default: x's)."""
+    b_loc, S, D = x.shape
     E = cfg.num_experts
+    e_loc = w["wi_gate"].shape[0]
     C = _capacity(cfg, S)
-    gates, topw, topi = _router(params, x, cfg)               # (B,S,E/K)
-    aux = aux_load_balance_loss(gates, topi, E)
+    dev = x.device
+    gates, topw, topi = _router(w, x, cfg)                    # (b,S,E/K)
+    sums = torch.stack([
+        F.one_hot(topi, E).float().sum(-2).reshape(-1, E).sum(0),
+        gates.reshape(-1, E).sum(0)])
+    if psum is not None:
+        sums = psum(sums, "batch")
+    sums = sums / (tokens or b_loc * S)
+    aux = E * (sums[0] * sums[1]).sum()
     pos, keep = _route_positions(topi, cfg, C)
-    slots = _slot_table(topi, pos, keep, E, C)                # (B,E,C)
+    slots = _slot_table(topi, pos, keep, E, C)[:, e0:e0 + e_loc]
     kw = {"live": (slots < S).any(2).any(0)} if pass_live else {}
 
     # slot (e, b*C + c) holds row b's token slots[b, e, c]; row b's zero
     # row sits at b*(S+1) + S of the flattened, padded tokens
-    base = torch.arange(B, device=x.device)[:, None, None] * (S + 1)
+    base = torch.arange(b_loc, device=dev)[:, None, None] * (S + 1)
     idx = (slots + base).transpose(0, 1).reshape(-1)
     xe = _with_zero_row(x, 1).reshape(-1, D)[idx]
-    xe = axisenv.constrain(xe.reshape(E, B * C, D)
-                           .to(dtype_of(cfg.compute_dtype)),
-                           "model", "batch", None)
-    ye = expert_ffn(params, xe, cfg, **kw)                    # (E,B*C,D)
-    ye = axisenv.constrain(ye, "model", "batch", None)
+    ye = expert_ffn(w, xe.reshape(e_loc, b_loc * C, D)
+                    .to(dtype_of(cfg.compute_dtype)), cfg, **kw)
 
-    b = torch.arange(B, device=x.device)[:, None, None]
-    flat_idx = torch.where(keep, topi * (B * C) + b * C + pos, E * B * C)
-    y_sel = _with_zero_row(ye.reshape(E * B * C, D), 0)[
-        flat_idx.reshape(B, -1)]
-    y = axisenv.constrain(_combine(y_sel, topw, keep), "batch", None, None)
+    mine = keep & (topi >= e0) & (topi < e0 + e_loc)
+    b = torch.arange(b_loc, device=dev)[:, None, None]
+    flat_idx = torch.where(mine, (topi - e0) * (b_loc * C) + b * C + pos,
+                           e_loc * b_loc * C)
+    y_sel = _with_zero_row(ye.reshape(e_loc * b_loc * C, D), 0)[
+        flat_idx.reshape(b_loc, -1)]
+    y = _combine(y_sel, topw, mine)
+    if psum is not None:
+        y = psum(y, "model")
     return y.to(x.dtype), aux
+
+
+def _dispatch_on_mesh(params, x, cfg: ModelConfig, expert_ffn, pass_live):
+    """``dispatch`` for a DTensor ``x`` (B, S, D) sharded over batch rows,
+    in ``shard_map``: each rank routes its own rows over every expert (a
+    row is a routing group, so its slots are those of the whole batch),
+    runs the products of its own experts (those the "model" axis gives it,
+    or all), and the partial outputs are summed over "model". The aux loss
+    takes the token and gate sums of every row, summed over the batch
+    axes. Collectives are autograd-aware where a gradient is wanted."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed.compat import shard_map
+    from repro_torch.distributed.sharding import P
+
+    mesh = x.device_mesh
+    names = mesh.mesh_dim_names
+    bax = tuple(a for a, p in zip(names, x.placements)
+                if p.is_shard(0)) or None
+    E = cfg.num_experts
+    tp = mesh_axis_size(mesh, "model")
+    em = ("model" if "model" in names and tp > 1 and E % tp == 0
+          and "model" not in (bax or ()) else None)
+    B, S, _ = x.shape
+
+    def body(x_loc, router, wi_g, wi_u, wo):
+        grad = torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x_loc, router, wi_g, wi_u, wo))
+
+        def psum(t, over):
+            axes = (bax or ()) if over == "batch" else ((em,) if em else ())
+            for a in axes:
+                g = mesh.get_group(a)
+                if grad:
+                    import torch.distributed.nn.functional as dnf
+                    t = dnf.all_reduce(t, group=g)
+                else:
+                    t = t.clone()
+                    dist.all_reduce(t, group=g)
+            return t
+
+        e0 = mesh.get_local_rank("model") * wi_g.shape[0] if em else 0
+        return _dispatch_rows(
+            x_loc, {"router": router, "wi_gate": wi_g, "wi_up": wi_u,
+                    "wo": wo}, cfg, expert_ffn, pass_live, e0=e0,
+            tokens=B * S, psum=psum)
+
+    fn = shard_map(body, mesh=mesh,
+                   in_specs=(P(bax, None, None), P(None, None),
+                             P(em, None, None), P(em, None, None),
+                             P(em, None, None)),
+                   out_specs=(P(bax, None, None), P()))
+    return fn(x, *(params[k] for k in ("router", "wi_gate", "wi_up", "wo")))
 
 
 def moe_dropping(params, x, cfg: ModelConfig):

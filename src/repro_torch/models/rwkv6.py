@@ -17,6 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import axisenv
 from repro_torch.kernels.rwkv6_scan import ops as wkv_ops
 from repro_torch.models.layers import _lead, dtype_of, rmsnorm
 
@@ -86,16 +87,24 @@ def rwkv_time_mix(params, x, cfg: ModelConfig, cache=None):
     def proj(name):
         return _mix(x, xs, params["mu_" + name[1]]) @ params[name].to(cd)
 
-    r = proj("wr").reshape(B, L, H, K)
-    k = proj("wk").reshape(B, L, H, K)
-    v = proj("wv").reshape(B, L, H, K)
+    def heads(t):
+        """(B, L, D) -> (B, L, H, K); on a mesh, each rank's heads (the
+        model axis), from a form whose D axis is whole (D is split into
+        heads only where the heads divide the axis)."""
+        t = axisenv.constrain(t, "batch", None, None)
+        return axisenv.constrain(t.reshape(B, L, H, K),
+                                 "batch", None, "model", None)
+
+    r = heads(proj("wr"))
+    k = heads(proj("wk"))
+    v = heads(proj("wv"))
     g = F.silu(proj("wg"))
 
     # data-dependent decay (the Finch contribution): w = exp(-exp(...))
     xw = _mix(x, xs, params["mu_w"])
     lora = torch.tanh(xw @ params["w_lora_a"].to(cd)) @ params["w_lora_b"].to(cd)
     w_raw = params["w0"].float() + lora.float()
-    log_w = torch.clamp_min(-torch.exp(w_raw), MIN_LOG_W).reshape(B, L, H, K)
+    log_w = heads(torch.clamp_min(-torch.exp(w_raw), MIN_LOG_W))
 
     state = cache["state"] if cache is not None else None
     if L == 1 and cache is not None:
@@ -129,14 +138,17 @@ def rwkv_channel_mix(params, x, cfg: ModelConfig, cache=None):
 
 def init_rwkv_cache(cfg: ModelConfig, batch: int, layers: int, device="cuda"):
     """Decode states stacked over layers: the two token shifts (L, B, 1, D)
-    in the compute dtype and the WKV state (L, B, H, K, K) in f32."""
+    in the compute dtype and the WKV state (L, B, H, K, K) in f32 (DTensors
+    under an axis environment)."""
     H, K = rwkv_dims(cfg)
     dt = dtype_of(cfg.compute_dtype)
+    shift = (layers, batch, 1, cfg.d_model)
     return {
-        "tm_shift": torch.zeros(layers, batch, 1, cfg.d_model, dtype=dt,
-                                device=device),
-        "cm_shift": torch.zeros(layers, batch, 1, cfg.d_model, dtype=dt,
-                                device=device),
-        "state": torch.zeros(layers, batch, H, K, K, dtype=torch.float32,
-                             device=device),
+        "tm_shift": axisenv.zeros(shift, None, "batch", None, None, dtype=dt,
+                                  device=device),
+        "cm_shift": axisenv.zeros(shift, None, "batch", None, None, dtype=dt,
+                                  device=device),
+        "state": axisenv.zeros((layers, batch, H, K, K),
+                               None, "batch", "model", None, None,
+                               dtype=torch.float32, device=device),
     }

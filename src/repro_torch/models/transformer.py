@@ -199,7 +199,16 @@ def _ckpt(fn, cfg: ModelConfig, cache):
             create_selective_checkpoint_contexts, _save_matmuls)
     elif cfg.remat != "block":
         raise ValueError(f"unknown remat {cfg.remat!r}")
-    return lambda *args: checkpoint(fn, *args, use_reentrant=False, **kw)
+    # the backward's recompute (on autograd's device thread for CUDA
+    # tensors) runs under the forward's axis environment
+    env = axisenv.current()
+
+    def under_env(*args):
+        with axisenv.installed(env):
+            return fn(*args)
+
+    return lambda *args: checkpoint(under_env, *args, use_reentrant=False,
+                                    **kw)
 
 
 def run_stack(params, h, cfg: ModelConfig, *, cos, sin, cache=None,
