@@ -32,7 +32,9 @@ mechanical check over ``src/repro_torch/core/**``:
   in fabric code names a literal declared in
   ``repro_torch.observability.names``; an undeclared or dynamic name
   silently
-  fragments the merged timeline and the metrics rollup.
+  fragments the merged timeline and the metrics rollup.  This pass alone
+  also reads ``src/repro_torch/{apps,models}`` (``SPAN_TARGETS``), whose
+  layer spans and counters the benchmark's readers key on by name.
 
 False positives are suppressed in place with a justified pragma::
 
@@ -64,6 +66,10 @@ REPO_ROOT = Path(__file__).resolve().parents[3]
 DEFAULT_TARGETS = (REPO_ROOT / "src" / "repro_torch" / "core",
                    REPO_ROOT / "src" / "repro_torch" / "serving")
 DEFAULT_TARGET = DEFAULT_TARGETS[0]      # kept for callers by name
+# read by the span-name-registry pass only: app and model code carries
+# layer spans and counters, not the fabric's concurrency
+SPAN_TARGETS = (REPO_ROOT / "src" / "repro_torch" / "apps",
+                REPO_ROOT / "src" / "repro_torch" / "models")
 DEFAULT_BASELINE = Path(__file__).resolve().parent / "baseline.json"
 
 # relay modules: code that forwards envelopes it must not re-pickle
@@ -643,6 +649,8 @@ _OBS_NAME_SITES = {
     "gauge": (0, METRIC_NAMES, "METRIC_NAMES"),
     "histo": (0, METRIC_NAMES, "METRIC_NAMES"),
     "observe": (0, METRIC_NAMES, "METRIC_NAMES"),
+    "layer": (0, SPAN_NAMES, "SPAN_NAMES"),
+    "layer_at": (0, SPAN_NAMES, "SPAN_NAMES"),
 }
 
 
@@ -733,6 +741,16 @@ def run(paths: Sequence[Path],
     return findings
 
 
+def run_default(passes: Optional[Sequence[str]] = None) -> List[Finding]:
+    """The passes (default: all) over ``DEFAULT_TARGETS``, and
+    span-name-registry, when selected, over ``SPAN_TARGETS`` too."""
+    findings = run(DEFAULT_TARGETS, passes)
+    if passes is None or "span-name-registry" in passes:
+        findings += run(SPAN_TARGETS, ["span-name-registry"])
+    findings.sort(key=lambda f: (f.file, f.line, f.pass_name))
+    return findings
+
+
 def load_baseline(path: Path) -> List[dict]:
     if not path.exists():
         return []
@@ -754,7 +772,9 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         description="concurrency-invariant analyzer for the dispatch fabric")
     ap.add_argument("paths", nargs="*", type=Path,
                     help="files/dirs to analyze (default: "
-                         "src/repro_torch/core)")
+                         "src/repro_torch/{core,serving}, and "
+                         "src/repro_torch/{apps,models} for "
+                         "span-name-registry)")
     ap.add_argument("--check", action="store_true",
                     help="exit 1 on findings not in the baseline (default "
                          "behavior; flag kept for explicit CI invocation)")
@@ -770,12 +790,12 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                     help="run only this pass (repeatable)")
     args = ap.parse_args(argv)
 
-    paths = args.paths or list(DEFAULT_TARGETS)
     baseline_path = args.baseline
     if baseline_path is None and not args.paths:
         baseline_path = DEFAULT_BASELINE
 
-    findings = run(paths, args.only_passes)
+    findings = (run(args.paths, args.only_passes) if args.paths
+                else run_default(args.only_passes))
 
     if args.update_baseline:
         save_baseline(baseline_path or DEFAULT_BASELINE, findings)

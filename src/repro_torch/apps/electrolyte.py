@@ -26,6 +26,10 @@ immutable parameters; here ``train`` trains a private copy of the model and
 at the end replaces ``Surrogate.state``, the (model, y_mean, y_std) triple,
 in one assignment, and ``predict`` reads that triple once. Nothing writes the
 weights that a re-score is reading.
+
+Layer spans (``repro_torch.observability``, always on): ``mpnn.install``,
+``mpnn.predict`` (with the edge-tensor bytes its forwards allocated),
+``mpnn.rank`` and ``mpnn.train``.
 """
 from __future__ import annotations
 
@@ -37,6 +41,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from repro_torch import observability as obs
 from repro_torch.configs import mpnn_surrogate
 from repro_torch.core import (CampaignRecord, ColmenaQueues, Observation,
                               ResourceTracker, TaskServer, ValueServer)
@@ -104,9 +109,10 @@ class Surrogate:
                    y_std: float) -> None:
         """Install stacked numpy parameters (names and shapes of
         ``repro.models.mpnn.mpnn_params``) and the target standardization."""
-        model = copy.deepcopy(self.model)
-        model.load_state_dict(params_from_numpy(params, self.device))
-        self.state = (model, float(y_mean), float(y_std))
+        with obs.layer("mpnn.install"):
+            model = copy.deepcopy(self.model)
+            model.load_state_dict(params_from_numpy(params, self.device))
+            self.state = (model, float(y_mean), float(y_std))
 
     def train(self, feats, y, lr: float, epochs: int, *, idx=None) -> float:
         """Full-batch Adam on a bootstrap sample per member, from the current
@@ -114,32 +120,34 @@ class Surrogate:
         {"atoms","bonds","mask"} and y for n molecules; idx (E, n) bootstrap
         indices, drawn from the surrogate's seed if None. Returns the mean
         over members of the last epoch's loss (taken before its update)."""
-        y = np.asarray(y, np.float64)
-        y_mean = float(y.mean())
-        y_std = float(max(y.std(), 1e-3))
-        y_n = ((y - y_mean) / y_std).astype(np.float32)
-        n = len(y)
-        if idx is None:
-            gen = torch.Generator().manual_seed(self.seed)
-            idx = torch.randint(n, (self.cfg.ensemble, n), generator=gen).numpy()
-        idx = np.asarray(idx)
-        batch = {k: torch.from_numpy(np.asarray(feats[k])[idx]).to(self.device)
-                 for k in FEATURES}
-        batch["y"] = torch.from_numpy(y_n[idx]).to(self.device)
+        with obs.layer("mpnn.train", epochs=epochs, molecules=len(y)):
+            y = np.asarray(y, np.float64)
+            y_mean = float(y.mean())
+            y_std = float(max(y.std(), 1e-3))
+            y_n = ((y - y_mean) / y_std).astype(np.float32)
+            n = len(y)
+            if idx is None:
+                gen = torch.Generator().manual_seed(self.seed)
+                idx = torch.randint(n, (self.cfg.ensemble, n),
+                                    generator=gen).numpy()
+            idx = np.asarray(idx)
+            batch = {k: torch.from_numpy(np.asarray(feats[k])[idx])
+                     .to(self.device) for k in FEATURES}
+            batch["y"] = torch.from_numpy(y_n[idx]).to(self.device)
 
-        model = copy.deepcopy(self.model)
-        # Adam is elementwise, so one optimizer over the stacked parameters
-        # is per-member Adam; the loss is summed so that each member gets
-        # the gradient of its own loss
-        opt = torch.optim.Adam(model.parameters(), lr=lr,
-                               betas=(0.9, 0.999), eps=1e-8)
-        for _ in range(epochs):
-            loss = mpnn_loss(model, batch)                  # (E,)
-            opt.zero_grad(set_to_none=True)
-            loss.sum().backward()
-            opt.step()
-        self.state = (model, y_mean, y_std)
-        return float(loss.detach().mean())
+            model = copy.deepcopy(self.model)
+            # Adam is elementwise, so one optimizer over the stacked
+            # parameters is per-member Adam; the loss is summed so that each
+            # member gets the gradient of its own loss
+            opt = torch.optim.Adam(model.parameters(), lr=lr,
+                                   betas=(0.9, 0.999), eps=1e-8)
+            for _ in range(epochs):
+                loss = mpnn_loss(model, batch)                  # (E,)
+                opt.zero_grad(set_to_none=True)
+                loss.sum().backward()
+                opt.step()
+            self.state = (model, y_mean, y_std)
+            return float(loss.detach().mean())
 
     def chunk_size(self, n_atoms: int) -> int:
         """Molecules per chunk whose edge tensor fits EDGE_BYTES_BUDGET."""
@@ -154,17 +162,24 @@ class Surrogate:
         device in one copy (1,152 bytes a molecule at N=16, against 64 MiB
         of edge tensor): a copy from pageable host memory waits for the
         stream, so a copy a chunk would stall the host once a chunk."""
-        model, y_mean, y_std = self.state
-        atoms, bonds, mask = (torch.as_tensor(np.asarray(feats[k]),
-                                              device=self.device)
-                              for k in FEATURES)
-        chunk = self.chunk_size(atoms.shape[1])
-        with torch.inference_mode():
-            preds = torch.cat([
-                model(atoms[s:s + chunk], bonds[s:s + chunk],
-                      mask[s:s + chunk])
-                for s in range(0, atoms.shape[0], chunk)], dim=1)
-        return preds.cpu().numpy() * y_std + y_mean
+        with obs.layer("mpnn.predict") as sp:
+            model, y_mean, y_std = self.state
+            atoms, bonds, mask = (torch.as_tensor(np.asarray(feats[k]),
+                                                  device=self.device)
+                                  for k in FEATURES)
+            chunk = self.chunk_size(atoms.shape[1])
+            starts = range(0, atoms.shape[0], chunk)
+            edge_bytes = obs.counter("edge_bytes")
+            before = edge_bytes.value
+            with torch.inference_mode():
+                preds = torch.cat([
+                    model(atoms[s:s + chunk], bonds[s:s + chunk],
+                          mask[s:s + chunk])
+                    for s in starts], dim=1)
+            out = preds.cpu().numpy() * y_std + y_mean
+            sp.attrs.update(molecules=atoms.shape[0], chunks=len(starts),
+                            edge_bytes=edge_bytes.value - before)
+            return out
 
     def mae(self, feats, y) -> float:
         return float(np.mean(np.abs(self.predict(feats).mean(0) - y)))
@@ -173,8 +188,10 @@ class Surrogate:
 def rank_space(surrogate: Surrogate, feats, kappa: float = 2.0):
     """ML-Recorder re-score: UCB over the whole space and the queue order
     (best first). Returns (scores (B,), order (B,))."""
-    scores = ucb_scores(surrogate.predict(feats), kappa)
-    return scores, np.argsort(-scores)
+    preds = surrogate.predict(feats)
+    with obs.layer("mpnn.rank"):
+        scores = ucb_scores(preds, kappa)
+        return scores, np.argsort(-scores)
 
 
 # ---------------------------------------------------------------------------
@@ -338,9 +355,9 @@ def run_campaign(app: AppConfig, *, verbose: bool = False, device="cuda",
     with server:
         thinker.run(timeout=600)
 
-    obs = [o for o in record.observations() if o.assay == "qc"]
-    values = np.array([o.value for o in obs])
-    times = np.array([o.time for o in obs])
+    qc_obs = [o for o in record.observations() if o.assay == "qc"]
+    values = np.array([o.value for o in qc_obs])
+    times = np.array([o.time for o in qc_obs])
     n_high = int(np.sum(values >= app.high_ip))
     out = {
         "policy": app.policy,

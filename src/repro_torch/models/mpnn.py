@@ -23,6 +23,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch import observability as obs
 from repro_torch.configs.mpnn_surrogate import MPNNConfig
 from repro_torch.kernels.mpnn_mp import ops as mp_ops
 
@@ -94,6 +95,8 @@ class MPNNEnsemble(nn.Module):
         edge_mat = torch.matmul(bond_oh.reshape(-1, B * N * N, nb),
                                 self.edge_w)                    # (E,BNN,Hd*Hd)
         edge_mat = edge_mat.reshape(E * B, N, N, hd, hd)
+        obs.counter("edge_bytes").inc(edge_mat.numel()
+                                      * edge_mat.element_size())
         adj = (bonds > 0).to(h.dtype) * mask[..., :, None] * mask[..., None, :]
         adj = adj.expand(E, B, N, N).reshape(E * B, N, N)
 

@@ -2,7 +2,8 @@
 
 Dashboards, the report's Fig.-5 decomposition table, and the chaos
 trace-continuity tests all key on these names.  Instrumentation in
-``core/**`` and ``serving/**`` may only use names declared here -- the
+``core/**`` and ``serving/**`` (and, for this pass, ``apps/**`` and
+``models/**``) may only use names declared here -- the
 ``span-name-registry`` fabriclint pass enforces it (the same
 single-source pattern as ``IDEMPOTENT_OPS``), so a renamed span cannot
 silently drop out of a dashboard or acceptance check.
@@ -42,6 +43,24 @@ SPAN_NAMES = {
     "report_intermediate": "worker: observation serialize + stream "
                            "publish (one span per observation)",
     "observation_transit": "Thinker: observation envelope t_put to decode",
+    # -- layer spans (always on, the in-memory ring of trace.layer) ------
+    "serve.intake": "shard: ServeLoop._intake, the channel wait included "
+                    "(requests drained, groups active)",
+    "serve.admit": "shard: ServeLoop._admit (requests admitted, padded "
+                   "rows)",
+    "serve.step": "shard: ServeLoop._step, one decode round over every "
+                  "group (real and padded rows of its decode calls)",
+    "engine.prefill": "Engine.prefill_batch to its first tokens on the "
+                      "host (rows, length)",
+    "engine.decode": "Engine.decode_batch to its tokens on the host "
+                     "(rows, pos)",
+    "engine.gather": "Engine.gather_rows (rows)",
+    "mpnn.install": "Surrogate.load_numpy",
+    "mpnn.predict": "Surrogate.predict to its host copy (molecules, "
+                    "chunks, edge_bytes)",
+    "mpnn.rank": "rank_space: the host UCB and argsort after predict",
+    "mpnn.train": "Surrogate.train, to the loss's host read (epochs, "
+                  "molecules)",
 }
 
 # metric name -> one-line description (role, kind)
@@ -71,6 +90,9 @@ METRIC_NAMES = {
     "observations": "worker counter: intermediate observations published",
     "observations_dropped": "worker counter: observations dropped because "
                             "the task was already cancelled",
+    # -- models ----------------------------------------------------------
+    "edge_bytes": "MPNNEnsemble.forward counter: bytes of the edge "
+                  "tensors it allocated",
 }
 
 __all__ = ["SPAN_NAMES", "METRIC_NAMES"]

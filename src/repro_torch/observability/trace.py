@@ -54,12 +54,14 @@ with the coordinator as the root of the shared timeline.
 from __future__ import annotations
 
 import atexit
+import itertools
 import json
 import os
 import threading
 import time
 import zlib
-from typing import Callable, Optional
+from collections import deque
+from typing import Callable, List, NamedTuple, Optional
 
 from repro_torch.observability import metrics as _metrics
 from repro_torch.utils.timing import now
@@ -362,3 +364,159 @@ def calibrate(sync_fn: Callable[[], float], rounds: int = 5) -> float:
             best_rtt = rtt
             offset = t_ref - (a + rtt / 2.0)
     return offset
+
+
+# -----------------------------------------------------------------------
+# layer spans: an always-on, bounded in-memory ring per process
+# -----------------------------------------------------------------------
+#
+# The sinks above hold sampled task spans and cost nothing when off.
+# Layer spans are the other kind: every call of a layer boundary (the
+# serve loop's intake, admit and step; the engine's calls; the
+# surrogate's install, predict, rank and train) is recorded, always, in
+# memory, and read in-process by whoever wants the timings -- a
+# benchmark after its window, a launcher after its rounds.  A span costs
+# two ``perf_counter_ns`` reads, an id and one ``deque.append``: no
+# lock, no I/O, no profiler call.  The ring holds ``RING_SPANS`` spans;
+# when full, the oldest go and are counted (``layer_dropped``).
+#
+# Clock: span times are ``time.perf_counter_ns()``.  ``clock_offset_ns``
+# maps them onto the Unix epoch, which is the clock of torch.profiler's
+# event times, so a reader can lay spans onto a device trace.
+
+#: layer spans the ring holds
+RING_SPANS = 1 << 18
+
+
+class LayerSpan(NamedTuple):
+    name: str                   # declared in observability.names
+    t0: int                     # time.perf_counter_ns() at the start
+    t1: int                     # ... at the end
+    sid: int                    # the span's number in this process
+    parent: int                 # sid of the span open around it on its
+                                # thread when it started, or -1
+    rid: Optional[str]          # the request it served, if one
+    attrs: dict                 # a few integer attributes
+
+
+class _Ring:
+    def __init__(self) -> None:
+        self.reset()
+
+    def reset(self) -> None:
+        self.spans: deque = deque(maxlen=RING_SPANS)
+        self.ids = itertools.count()
+        self.stacks: list = []          # every recording thread's open sids
+        self.tls = threading.local()
+
+    def stack(self) -> list:
+        """This thread's open spans (their sids), innermost last."""
+        try:
+            return self.tls.open
+        except AttributeError:
+            stack = self.tls.open = []
+            self.stacks.append(stack)
+            return stack
+
+    def issued(self) -> int:
+        """Sids handed out so far; ``itertools.count`` shows its next
+        value in its repr, and reading it there takes no sid."""
+        return int(repr(self.ids)[len("count("):-1])
+
+
+_clock = time.perf_counter_ns
+_RING = _Ring()
+os.register_at_fork(after_in_child=_RING.reset)  # a child's ring is its own
+_OFFSET: list = []
+
+
+class _Layer:
+    """An open layer span: what ``layer`` returns."""
+
+    __slots__ = ("name", "rid", "attrs", "t0", "sid", "parent", "stack")
+
+    def __enter__(self) -> "_Layer":
+        try:
+            stack = self.stack = _RING.tls.open
+        except AttributeError:
+            stack = self.stack = _RING.stack()
+        self.parent = stack[-1] if stack else -1
+        self.sid = sid = next(_RING.ids)
+        stack.append(sid)
+        self.t0 = _clock()
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> None:
+        t1 = _clock()
+        self.stack.pop()
+        _RING.spans.append((self.name, self.t0, t1, self.sid, self.parent,
+                            self.rid, self.attrs))
+
+
+_new_layer = object.__new__
+
+
+def layer(name: str, rid: Optional[str] = None, **attrs) -> _Layer:
+    """One layer span around a block::
+
+        with obs.layer("serve.step") as sp:
+            ...
+            sp.attrs["rows"] = n
+
+    ``rid`` names the request served; keyword arguments start ``attrs``.
+    (A function, not the class: a class's ``__init__`` with keyword
+    arguments costs a few hundred ns more a span.)"""
+    sp = _new_layer(_Layer)
+    sp.name, sp.rid, sp.attrs = name, rid, attrs
+    return sp
+
+
+def layer_at(name: str, t0: int, t1: int, rid: Optional[str] = None,
+             **attrs) -> None:
+    """One layer span whose caller took its times (``perf_counter_ns``);
+    its parent is the span open on this thread now."""
+    stack = _RING.stack()
+    _RING.spans.append((name, t0, t1, next(_RING.ids),
+                        stack[-1] if stack else -1, rid, attrs))
+
+
+def layer_spans() -> List[LayerSpan]:
+    """The spans the ring holds, oldest end first."""
+    return [LayerSpan._make(r) for r in list(_RING.spans)]
+
+
+def layer_dropped() -> int:
+    """Spans the full ring has let go since the process (or the last
+    ``reset_layers``) started."""
+    recorded = _RING.issued() - sum(len(st) for st in list(_RING.stacks))
+    return max(0, recorded - len(_RING.spans))
+
+
+def layer_complete_since(t_ns: int) -> bool:
+    """Whether the ring still holds every span that ended after
+    ``t_ns``: nothing was dropped, or the oldest span held ended by
+    then."""
+    spans = _RING.spans
+    return layer_dropped() == 0 or (bool(spans) and spans[0][2] <= t_ns)
+
+
+def reset_layers() -> None:
+    """Empty the ring and restart its counts (tests)."""
+    _RING.reset()
+
+
+def clock_offset_ns() -> int:
+    """``time.time_ns() - time.perf_counter_ns()``, taken once per
+    process from the closest-spaced of 64 back-to-back read pairs: add
+    it to a span's times to put them on the Unix epoch, the clock of
+    torch.profiler's event times."""
+    if not _OFFSET:
+        best = None
+        for _ in range(64):
+            a = time.perf_counter_ns()
+            w = time.time_ns()
+            b = time.perf_counter_ns()
+            if best is None or b - a < best[0]:
+                best = (b - a, w - (a + b) // 2)
+        _OFFSET.append(best[1])
+    return _OFFSET[0]

@@ -14,21 +14,20 @@ The prefill allocates the cache at its full reserve (prompt + generation)
 once and decode writes it in place; the JAX engine pads a prompt-long cache
 in ``grow_cache`` and rebuilds it at every step, with the same values.
 
-Timing: the first ``generate`` call for a (batch, prompt_len, max_new)
-shape, which includes building the CUDA kernel and the libraries' warm-up,
-goes to ``stats["compile_wall"]``; later calls go to ``stats["wall"]``,
-and the clock stops only after ``torch.cuda.synchronize``.
-``throughput()`` is steady-state tokens/s over those warm calls only.
+Timing: each stepwise call is a layer span (``engine.prefill``,
+``engine.decode``, ``engine.gather``; ``repro_torch.observability``),
+always on. A prefill or decode span ends on its tokens' host copy, so it
+holds the call's device work. ``stats`` counts calls and tokens.
 """
 from __future__ import annotations
 
-import time
 from dataclasses import dataclass
 from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
+from repro_torch import observability as obs
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import api
 
@@ -61,10 +60,8 @@ class Engine:
         self.params = params
         self.max_new = max_new
         self.device = params["tok"]["embed"].device
-        self._warm: set = set()   # (B, S, max_new) shapes already run
         self.stats = {"prefill_calls": 0, "decode_steps": 0,
-                      "tokens_out": 0, "wall": 0.0, "compile_wall": 0.0,
-                      "warm_tokens": 0}
+                      "tokens_out": 0}
 
     # -- stepwise API (continuous batching) ---------------------------------
 
@@ -79,20 +76,21 @@ class Engine:
         as the JAX engine does."""
         B, S = tokens.shape
         reserve = reserve if reserve is not None else S + self.max_new
-        batch = {"tokens": torch.as_tensor(np.asarray(tokens, np.int64),
-                                           device=self.device)}
-        if self.cfg.is_encdec:
-            if frames is None:
-                frames = np.zeros((B, S, self.cfg.d_model), np.float32)
-            batch["frames"] = torch.as_tensor(frames, device=self.device)
-        logits, cache = api.prefill(self.params, self.cfg, batch,
-                                    reserve=reserve)
-        self.stats["prefill_calls"] += 1
-        first = logits.argmax(-1)
-        state = GenState(cache=cache, cur=first[:, None], pos=S,
-                         reserve=reserve, padded_b=B)
-        self.stats["tokens_out"] += int(B)
-        return first.cpu().numpy().astype(np.int32), state
+        with obs.layer("engine.prefill", rows=B, length=S):
+            batch = {"tokens": torch.as_tensor(np.asarray(tokens, np.int64),
+                                               device=self.device)}
+            if self.cfg.is_encdec:
+                if frames is None:
+                    frames = np.zeros((B, S, self.cfg.d_model), np.float32)
+                batch["frames"] = torch.as_tensor(frames, device=self.device)
+            logits, cache = api.prefill(self.params, self.cfg, batch,
+                                        reserve=reserve)
+            self.stats["prefill_calls"] += 1
+            first = logits.argmax(-1)
+            state = GenState(cache=cache, cur=first[:, None], pos=S,
+                             reserve=reserve, padded_b=B)
+            self.stats["tokens_out"] += int(B)
+            return first.cpu().numpy().astype(np.int32), state
 
     @torch.inference_mode()
     def decode_batch(self, state: GenState) -> np.ndarray:
@@ -101,23 +99,26 @@ class Engine:
         if state.pos >= state.reserve:
             raise ValueError(
                 f"decode past reserved cache length {state.reserve}")
-        logits, state.cache = api.decode_step(
-            self.params, self.cfg, state.cache, state.cur, state.pos)
-        nxt = logits.argmax(-1)
-        state.cur = nxt[:, None]
-        state.pos += 1
-        self.stats["decode_steps"] += 1
-        self.stats["tokens_out"] += int(state.padded_b)
-        return nxt.cpu().numpy().astype(np.int32)
+        with obs.layer("engine.decode", rows=state.padded_b, pos=state.pos):
+            logits, state.cache = api.decode_step(
+                self.params, self.cfg, state.cache, state.cur, state.pos)
+            nxt = logits.argmax(-1)
+            state.cur = nxt[:, None]
+            state.pos += 1
+            self.stats["decode_steps"] += 1
+            self.stats["tokens_out"] += int(state.padded_b)
+            return nxt.cpu().numpy().astype(np.int32)
 
     def gather_rows(self, state: GenState, rows: Sequence[int]) -> GenState:
         """Slot reuse: re-pack the group's state down to ``rows`` (engine
         batch indices). Every cache leaf is (layers, batch, ...), so the
         gather is along axis 1, over the whole nested tree."""
-        idx = torch.as_tensor(list(rows), dtype=torch.long, device=self.device)
-        cache = _gather(state.cache, idx)
-        return GenState(cache=cache, cur=state.cur[idx], pos=state.pos,
-                        reserve=state.reserve, padded_b=len(rows))
+        with obs.layer("engine.gather", rows=len(rows)):
+            idx = torch.as_tensor(list(rows), dtype=torch.long,
+                                  device=self.device)
+            cache = _gather(state.cache, idx)
+            return GenState(cache=cache, cur=state.cur[idx], pos=state.pos,
+                            reserve=state.reserve, padded_b=len(rows))
 
     # -- run-to-completion API ----------------------------------------------
 
@@ -125,27 +126,11 @@ class Engine:
                  frames: Optional[np.ndarray] = None) -> np.ndarray:
         """tokens (B, S) equal-length prompts -> (B, S + max_new); ``frames``
         as in ``prefill_batch``."""
-        t_start = time.perf_counter()
         max_new = max_new or self.max_new
-        B, S = tokens.shape
+        S = tokens.shape[1]
         first, state = self.prefill_batch(tokens, reserve=S + max_new,
                                           frames=frames)
         out = [first]
         for _ in range(max_new - 1):
             out.append(self.decode_batch(state))
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        elapsed = time.perf_counter() - t_start
-        key = (B, S, max_new)
-        if key in self._warm:
-            self.stats["wall"] += elapsed
-            self.stats["warm_tokens"] += int(B * max_new)
-        else:
-            self._warm.add(key)
-            self.stats["compile_wall"] += elapsed
         return np.concatenate([tokens, np.stack(out, axis=1)], axis=1)
-
-    def throughput(self) -> float:
-        """Steady-state tokens/s: warm calls only (the first call per shape
-        is counted in ``stats["compile_wall"]``)."""
-        return self.stats["warm_tokens"] / max(self.stats["wall"], 1e-9)

@@ -311,14 +311,18 @@ class ServeLoop:
             g.reset_slots()
             self.stats["compactions"] += 1
 
-    def _admit(self) -> None:
-        """Prefill every micro-batch the batcher deems ready."""
+    def _admit(self) -> tuple:
+        """Prefill every micro-batch the batcher deems ready.  Returns
+        (requests admitted, padded rows prefilled)."""
+        admitted = rows = 0
         for mb in self.batcher.pop_ready(now()):
             t_admit = now()
             obs.observe("batch_occupancy",
                         len(mb.requests) / self.spec.max_batch)
             for req in mb.requests:
                 obs.observe("infer_queue_delay", t_admit - req.enqueue_t)
+                obs.layer_at("infer_queue", round(req.enqueue_t * 1e9),
+                             round(t_admit * 1e9), rid=req.task_id)
                 if req.meta.get("trace"):
                     obs.span(req.task_id, "infer_queue", req.enqueue_t,
                              t_admit, attempt=req.meta.get("attempt", 0),
@@ -326,6 +330,8 @@ class ServeLoop:
             padded_b = batch_bucket(len(mb.requests), self.spec.max_batch)
             reserve = mb.bucket + _pow2_at_most(mb.max_new,
                                                 self.spec.max_new_cap)
+            admitted += len(mb.requests)
+            rows += padded_b
             try:
                 first, state = self.engine.prefill_batch(
                     mb.padded_tokens(padded_b), reserve=reserve)
@@ -347,6 +353,7 @@ class ServeLoop:
             self._finish_rows(active)       # max_new == 1 rows
             if not active.group.done:
                 self.groups.append(active)
+        return admitted, rows
 
     def _step(self) -> None:
         """One decode step per active group (round-robin), streaming out
@@ -376,11 +383,22 @@ class ServeLoop:
         hb.start()
         try:
             while not self.stop.is_set():
-                self._intake()
+                # layer spans (obs.layer): always on, in memory
+                drained = self.stats["requests"]
+                with obs.layer("serve.intake",
+                               groups=len(self.groups)) as sp:
+                    self._intake()
+                    sp.attrs["requests"] = self.stats["requests"] - drained
                 if self.stop.is_set():
                     break
-                self._admit()
-                self._step()
+                with obs.layer("serve.admit") as sp:
+                    sp.attrs["requests"], sp.attrs["rows"] = self._admit()
+                # each group decodes once: its live rows, its padded rows
+                with obs.layer("serve.step",
+                               real=sum(len(a.group) for a in self.groups),
+                               rows=sum(a.state.padded_b
+                                        for a in self.groups)):
+                    self._step()
                 obs.flush_metrics()         # throttled cumulative snapshot
         finally:
             hb_stop.set()

@@ -1,11 +1,12 @@
 """The port's serving engine against ``repro.serving.engine.Engine`` on
 reduced internlm2 in f32, with the JAX package's parameters carried across:
-greedy tokens, slot reuse and the stats accounting. Greedy tokens are held
-identical, which is safe in f32 (the logits agree to 1e-4; argmax over bf16
-logits could tie)."""
+greedy tokens, slot reuse, the stats counts and the engine's layer spans.
+Greedy tokens are held identical, which is safe in f32 (the logits agree to
+1e-4; argmax over bf16 logits could tie)."""
 import os
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import jax
@@ -15,6 +16,7 @@ import pytest
 from repro.configs.base import get_config as jax_get_config
 from repro.models import api as jax_api
 from repro.serving.engine import Engine as JaxEngine
+from repro_torch import observability as obs
 from repro_torch.configs.base import get_config
 from repro_torch.models import convert
 from repro_torch.serving.engine import Engine
@@ -53,20 +55,29 @@ def test_generate_matches_jax(engines):
 
 
 def test_stats_match_jax(engines):
+    """The three counts against the JAX engine's, and one ``engine.*``
+    layer span for each call they count, its rows the tokens it gave."""
     jax_engine, engine = engines
     for e in engines:
-        e.stats.update(prefill_calls=0, decode_steps=0, tokens_out=0,
-                       wall=0.0, compile_wall=0.0, warm_tokens=0)
-        e._warm.clear()
-        for seed in (1, 2):            # one cold call, then one warm call
+        e.stats.update(prefill_calls=0, decode_steps=0, tokens_out=0)
+    since = time.perf_counter_ns()
+    for e in engines:
+        for seed in (1, 2):
             e.generate(_prompts(engine.cfg, seed), max_new=4)
-    assert set(engine.stats) == set(jax_engine.stats)
-    for k in ("prefill_calls", "decode_steps", "tokens_out", "warm_tokens"):
+    counts = ("prefill_calls", "decode_steps", "tokens_out")
+    assert set(engine.stats) == set(counts) <= set(jax_engine.stats)
+    for k in counts:
         assert engine.stats[k] == jax_engine.stats[k], k
-    assert engine.stats["warm_tokens"] == B * 4
-    assert engine.stats["compile_wall"] > 0 and engine.stats["wall"] > 0
-    assert engine.throughput() == (engine.stats["warm_tokens"]
-                                   / engine.stats["wall"])
+    assert engine.stats == {"prefill_calls": 2, "decode_steps": 6,
+                            "tokens_out": 2 * B * 4}
+    spans = [s for s in obs.layer_spans()
+             if s.name.startswith("engine.") and s.t0 >= since]
+    names = [s.name for s in spans]
+    assert names.count("engine.prefill") == engine.stats["prefill_calls"]
+    assert names.count("engine.decode") == engine.stats["decode_steps"]
+    assert len(spans) == 2 + 6
+    assert sum(s.attrs["rows"] for s in spans) == engine.stats["tokens_out"]
+    assert all(s.t1 >= s.t0 and s.parent == -1 for s in spans)
 
 
 def test_gather_rows_then_decode_matches_jax(engines):

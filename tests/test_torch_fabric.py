@@ -109,6 +109,141 @@ _ENGINE_FACTORY_NEW = '''                           max_new: int = 32,
         params = api.init_params(cfg, gen, device=device)
         return Engine(cfg, params, max_new=max_new)'''
 
+_OBS_INIT_LAYERS_OLD = """                                       obs_dir, sample_rate, sampled, span)
+"""
+_OBS_INIT_LAYERS_NEW = """                                       obs_dir, sample_rate, sampled, span)
+from repro_torch.observability.trace import (LayerSpan, clock_offset_ns,
+                                             layer, layer_at,
+                                             layer_complete_since,
+                                             layer_dropped, layer_spans,
+                                             reset_layers)
+"""
+_OBS_ALL_OLD = """    "span",
+]
+"""
+_OBS_ALL_NEW = """    "span",
+    "LayerSpan", "clock_offset_ns", "layer", "layer_at",
+    "layer_complete_since", "layer_dropped", "layer_spans", "reset_layers",
+]
+"""
+_OBS_DOC_OLD = """  calibrated via the idempotent ``clock_sync`` broker op.
+"""
+_OBS_DOC_NEW = """  calibrated via the idempotent ``clock_sync`` broker op.  Beside them,
+  the always-on in-memory ring of layer spans (``layer``, ``layer_at``,
+  read back with ``layer_spans``; ``clock_offset_ns`` maps them onto
+  the profiler's clock).
+"""
+_OBS_LINT_OLD = """literal at such a call site in ``core/**``/``serving/**`` must be
+declared in ``observability.names``."""
+_OBS_LINT_NEW = """literal at such a call site in ``core/**``/``serving/**`` (and
+``apps/**``/``models/**``, ``obs.layer``/``obs.layer_at`` among them)
+must be declared in ``observability.names``."""
+
+_NAMES_LINT_OLD = """``core/**`` and ``serving/**`` may only use names declared here -- the
+"""
+_NAMES_LINT_NEW = """``core/**`` and ``serving/**`` (and, for this pass, ``apps/**`` and
+``models/**``) may only use names declared here -- the
+"""
+_NAMES_SPANS_OLD = """    "observation_transit": "Thinker: observation envelope t_put to decode",
+}
+"""
+_NAMES_SPANS_NEW = """    "observation_transit": "Thinker: observation envelope t_put to decode",
+    # -- layer spans (always on, the in-memory ring of trace.layer) ------
+    "serve.intake": "shard: ServeLoop._intake, the channel wait included "
+                    "(requests drained, groups active)",
+    "serve.admit": "shard: ServeLoop._admit (requests admitted, padded "
+                   "rows)",
+    "serve.step": "shard: ServeLoop._step, one decode round over every "
+                  "group (real and padded rows of its decode calls)",
+    "engine.prefill": "Engine.prefill_batch to its first tokens on the "
+                      "host (rows, length)",
+    "engine.decode": "Engine.decode_batch to its tokens on the host "
+                     "(rows, pos)",
+    "engine.gather": "Engine.gather_rows (rows)",
+    "mpnn.install": "Surrogate.load_numpy",
+    "mpnn.predict": "Surrogate.predict to its host copy (molecules, "
+                    "chunks, edge_bytes)",
+    "mpnn.rank": "rank_space: the host UCB and argsort after predict",
+    "mpnn.train": "Surrogate.train, to the loss's host read (epochs, "
+                  "molecules)",
+}
+"""
+_NAMES_METRICS_OLD = """                            "the task was already cancelled",
+}
+"""
+_NAMES_METRICS_NEW = """                            "the task was already cancelled",
+    # -- models ----------------------------------------------------------
+    "edge_bytes": "MPNNEnsemble.forward counter: bytes of the edge "
+                  "tensors it allocated",
+}
+"""
+
+_SHARD_ADMIT_OLD = '''    def _admit(self) -> None:
+        """Prefill every micro-batch the batcher deems ready."""
+'''
+_SHARD_ADMIT_NEW = '''    def _admit(self) -> tuple:
+        """Prefill every micro-batch the batcher deems ready.  Returns
+        (requests admitted, padded rows prefilled)."""
+        admitted = rows = 0
+'''
+_SHARD_QUEUE_OLD = """                obs.observe("infer_queue_delay", t_admit - req.enqueue_t)
+"""
+_SHARD_QUEUE_NEW = """                obs.observe("infer_queue_delay", t_admit - req.enqueue_t)
+                obs.layer_at("infer_queue", round(req.enqueue_t * 1e9),
+                             round(t_admit * 1e9), rid=req.task_id)
+"""
+_SHARD_COUNT_OLD = """                                                self.spec.max_new_cap)
+            try:
+"""
+_SHARD_COUNT_NEW = """                                                self.spec.max_new_cap)
+            admitted += len(mb.requests)
+            rows += padded_b
+            try:
+"""
+_SHARD_RETURN_OLD = """                self.groups.append(active)
+
+    def _step(self) -> None:
+"""
+_SHARD_RETURN_NEW = """                self.groups.append(active)
+        return admitted, rows
+
+    def _step(self) -> None:
+"""
+_SHARD_LOOP_OLD = """            while not self.stop.is_set():
+                self._intake()
+                if self.stop.is_set():
+                    break
+                self._admit()
+                self._step()
+"""
+_SHARD_LOOP_NEW = """            while not self.stop.is_set():
+                # layer spans (obs.layer): always on, in memory
+                drained = self.stats["requests"]
+                with obs.layer("serve.intake",
+                               groups=len(self.groups)) as sp:
+                    self._intake()
+                    sp.attrs["requests"] = self.stats["requests"] - drained
+                if self.stop.is_set():
+                    break
+                with obs.layer("serve.admit") as sp:
+                    sp.attrs["requests"], sp.attrs["rows"] = self._admit()
+                # each group decodes once: its live rows, its padded rows
+                with obs.layer("serve.step",
+                               real=sum(len(a.group) for a in self.groups),
+                               rows=sum(a.state.padded_b
+                                        for a in self.groups)):
+                    self._step()
+"""
+_LAYER_SPANS = "the port's layer spans (observability.trace.layer)"
+
+# module -> (the first line of a section the port appends, reason): the
+# copy is the original, with its deltas, up to that section
+APPENDED = {
+    "observability/trace.py": (
+        "# layer spans: an always-on, bounded in-memory ring per process",
+        "the ring of layer spans, which the JAX package does not have"),
+}
+
 # module -> [(text of the renamed original, text of the copy, reason)]
 # Not a delta of any copied module: ``repro_torch/__init__.py`` registers an
 # at-fork hook that runs every forked child's torch CPU ops on one thread
@@ -129,7 +264,34 @@ DELTAS = {
     "serving/shard.py": [
         (_ENGINE_FACTORY_OLD, _ENGINE_FACTORY_NEW,
          "the default engine is the port's, drawn from a seeded "
-         "torch.Generator on the card unless the caller asks for the CPU")],
+         "torch.Generator on the card unless the caller asks for the CPU"),
+        (_SHARD_ADMIT_OLD, _SHARD_ADMIT_NEW,
+         "_admit returns what serve.admit records"),
+        (_SHARD_QUEUE_OLD, _SHARD_QUEUE_NEW,
+         "infer_queue goes to the ring for every request; " + _LAYER_SPANS),
+        (_SHARD_COUNT_OLD, _SHARD_COUNT_NEW,
+         "_admit counts what serve.admit records"),
+        (_SHARD_RETURN_OLD, _SHARD_RETURN_NEW,
+         "_admit returns what serve.admit records"),
+        (_SHARD_LOOP_OLD, _SHARD_LOOP_NEW,
+         "serve.intake, serve.admit, serve.step; " + _LAYER_SPANS)],
+    "observability/__init__.py": [
+        (_OBS_DOC_OLD, _OBS_DOC_NEW, _LAYER_SPANS),
+        (_OBS_LINT_OLD, _OBS_LINT_NEW, "the lint's wider reach"),
+        (_OBS_INIT_LAYERS_OLD, _OBS_INIT_LAYERS_NEW, _LAYER_SPANS),
+        (_OBS_ALL_OLD, _OBS_ALL_NEW, _LAYER_SPANS)],
+    "observability/names.py": [
+        (_NAMES_LINT_OLD, _NAMES_LINT_NEW, "the lint's wider reach"),
+        (_NAMES_SPANS_OLD, _NAMES_SPANS_NEW, _LAYER_SPANS),
+        (_NAMES_METRICS_OLD, _NAMES_METRICS_NEW,
+         "the MPNN's edge-tensor counter")],
+    "observability/trace.py": [
+        ("import atexit\nimport json\n",
+         "import atexit\nimport itertools\nimport json\n", _LAYER_SPANS),
+        ("import zlib\nfrom typing import Callable, Optional\n",
+         "import zlib\nfrom collections import deque\n"
+         "from typing import Callable, List, NamedTuple, Optional\n",
+         _LAYER_SPANS)],
 }
 
 
@@ -139,11 +301,17 @@ def test_copy_matches_original(rel):
     for old, new, reason in DELTAS.get(rel, []):
         assert want.count(old) == 1, f"{rel}: delta not found once ({reason})"
         want = want.replace(old, new)
-    assert (SRC / "repro_torch" / rel).read_text() == want
+    got = (SRC / "repro_torch" / rel).read_text()
+    if rel in APPENDED:
+        start = "\n\n# " + "-" * 71 + "\n" + APPENDED[rel][0] + "\n"
+        assert got.count(start) == 1, f"{rel}: appended section not found"
+        got = got[:got.index(start)]
+    assert got == want
 
 
 def test_deltas_name_copied_modules():
     assert set(DELTAS) <= set(COPIED)
+    assert set(APPENDED) <= set(COPIED)
 
 
 def _core(pkg):

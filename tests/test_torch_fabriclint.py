@@ -3,7 +3,8 @@
 (a copy of ``repro.analysis.fabriclint`` retargeted at
 ``src/repro_torch/{core,serving}``), on the same bad-code fixtures, plus the
 port's own: ``--check`` over the port's fabric is clean with the port's
-empty baseline, and the port's idempotent-op registry is the reference's."""
+empty baseline, the span-name-registry pass reads ``apps/`` and ``models/``
+too, and the port's idempotent-op registry is the reference's."""
 import json
 import subprocess
 import sys
@@ -548,6 +549,20 @@ def test_default_targets_are_the_ports_fabric():
 def test_idempotent_ops_equal_the_reference():
     from repro.analysis.idempotent_ops import IDEMPOTENT_OPS as REF
     assert IDEMPOTENT_OPS == REF
+
+
+def test_span_registry_reads_apps_and_models(monkeypatch):
+    """span-name-registry, and only it, also reads the app and model code
+    by default: an undeclared layer span in an ``apps/`` module fails."""
+    assert FL.SPAN_TARGETS == (REPO / "src" / "repro_torch" / "apps",
+                               REPO / "src" / "repro_torch" / "models")
+    assert FL.run_default() == []
+    monkeypatch.setattr(FL, "SPAN_TARGETS", (FIXTURES / "apps",))
+    found = FL.run_default()
+    assert [(f.pass_name, Path(f.file).name, f.line) for f in found] == [
+        ("span-name-registry", "bad_layer_span_undeclared.py", 9)]
+    assert "mpnn.predcit" in found[0].message
+    assert FL.run_default(["thread-lifecycle"]) == []
 
 
 def test_port_fabric_modules_lint_clean_one_by_one():
