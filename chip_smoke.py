@@ -16,7 +16,11 @@ Phases:
      set to 0 just before this phase and read just after it.
   4. Report: time each kernel, its plain version and the one PyTorch call
      that computes the same function, with CUDA events at the surrogate's
-     chunk shape, beside the bound for that work.
+     chunk shape, beside the bound for that work. 4b: the typed entry
+     (bond types and edge matrices, no edge tensor) at the chunk shape on
+     the space's first molecules, held at 1e-5 against its plain version
+     and against the dense kernel on the edge tensor built from the same
+     bonds, then timed beside its plain version and the roofline's bound.
   5. Hold the flash-attention kernel against its plain version on the six
      cases of the JAX kernel tests, in f32 and bf16, at the serving shape
      (8, 2048, 16 heads, 8 KV heads, hd 128) in bf16, and, in bf16 at hd
@@ -332,7 +336,8 @@ from repro_torch.kernels.moe_gmm import moe_gmm  # noqa: E402
 from repro_torch.kernels.moe_gmm import ops as gmm_ops  # noqa: E402
 from repro_torch.kernels.moe_gmm.ref import gmm_reference  # noqa: E402
 from repro_torch.kernels.mpnn_mp import mpnn_mp, ops  # noqa: E402
-from repro_torch.kernels.mpnn_mp.ref import message_pass_reference  # noqa: E402
+from repro_torch.kernels.mpnn_mp.ref import (  # noqa: E402
+    message_pass_reference, message_pass_typed_reference)
 from repro_torch.kernels.rwkv6_scan import ops as wkv_ops  # noqa: E402
 from repro_torch.kernels.rwkv6_scan import rwkv6_scan  # noqa: E402
 from repro_torch.kernels.rwkv6_scan.ref import wkv6_chunked  # noqa: E402
@@ -860,6 +865,60 @@ def phase_report(chunk_batch: int) -> dict:
             "bound_ms": max(bytes_ms, flops_ms),
             "bound_by": "bytes" if bytes_ms >= flops_ms else "operations",
             "library_ms": library_ms, "shape": [B, N, Hd], "dtype": "float32"}
+
+
+def phase_typed_report(chunk: int, feats: dict) -> dict:
+    """The typed entry at the surrogate's chunk shape, on the space's first
+    ``chunk`` molecules (real bonds and masks): held against its plain
+    version and against the dense kernel on the edge tensor built from the
+    same bonds and edge_w, then timed beside the plain version."""
+    log("phase 4b: the typed mpnn_mp entry at the surrogate chunk shape, real "
+        "bonds (f32)")
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 3)
+    E, Hd, nb = CONFIG.ensemble, CONFIG.hidden, CONFIG.num_bond_types
+    bonds, mask = (torch.as_tensor(feats[k][:chunk], device=DEV)
+                   for k in ("bonds", "mask"))
+    B, N = mask.shape
+    adj = (bonds > 0).float() * mask[:, :, None] * mask[:, None, :]
+    h = torch.randn(E, B, N, Hd, generator=gen, device=DEV) * mask[..., None]
+    h = h.reshape(E * B, N, Hd)
+    w = 0.05 * torch.randn(E, nb, Hd * Hd, generator=gen, device=DEV)
+    got = ops.message_pass_typed(h, bonds, w, adj, impl="kernel")
+    plain = message_pass_typed_reference(h, bonds, w, adj)
+    edge = torch.matmul(torch.nn.functional.one_hot(bonds.long(), nb).float()
+                        .reshape(1, B * N * N, nb), w)
+    dense = ops.message_pass(h, edge.reshape(E * B, N, N, Hd, Hd),
+                             adj.expand(E, B, N, N).reshape(E * B, N, N),
+                             impl="kernel")
+    del edge
+    torch.cuda.synchronize()
+    errs = {}
+    for name, want in (("plain", plain), ("dense kernel", dense)):
+        errs[name] = (got - want).abs().max().item()
+        check(torch.allclose(got, want, rtol=1e-5, atol=1e-5),
+              f"typed mpnn_mp vs {name}: max abs err {errs[name]}")
+    ms = median_ms(lambda: ops.message_pass_typed(h, bonds, w, adj,
+                                                   impl="kernel"))
+    plain_ms = median_ms(lambda: message_pass_typed_reference(h, bonds, w, adj))
+    # the bound of portbench/metrics/mpnn_mp_roofline.py for one step
+    pairs = float(adj.sum())
+    moved = (2 * h.numel() * 4 + bonds.numel() * bonds.element_size()
+             + w.numel() * 4 + adj.numel() * 4)
+    flops = 2.0 * Hd * Hd * E * pairs
+    bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+    flops_ms = flops / F32_FLOP_PER_S * 1e3
+    log(f"  max abs err {errs['plain']:.3e} against the plain version, "
+        f"{errs['dense kernel']:.3e} against the dense kernel (rtol 1e-5, "
+        f"atol 1e-5); {int(pairs)} adjacent pairs ({pairs / adj.numel():.4f})")
+    log(f"  kernel {ms:.4f} ms, plain {plain_ms:.3f} ms; bound "
+        f"{max(bytes_ms, flops_ms):.4f} ms ({flops / 1e9:.3f} GFLOP, "
+        f"{moved / 2**20:.2f} MiB): {100 * max(bytes_ms, flops_ms) / ms:.1f}%")
+    return {"ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(bytes_ms, flops_ms),
+            "bound_by": "bytes" if bytes_ms >= flops_ms else "operations",
+            "max_abs_err": errs["plain"],
+            "max_abs_err_dense": errs["dense kernel"],
+            "shape": [E, B, N, Hd, nb], "dtype": "float32"}
 
 
 def fa_inputs(case, dtype, gen):
@@ -3736,6 +3795,7 @@ def main() -> None:
     phase_surrogate(sur, feats)
     kernel.update(phase_serve(sur, feats))
     kernel.update(phase_report(chunk_batch))
+    kernel["typed"] = phase_typed_report(sur.chunk_size(SPACE.max_atoms), feats)
     del sur, feats
     torch.cuda.empty_cache()
 

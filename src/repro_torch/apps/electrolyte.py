@@ -14,11 +14,12 @@ Fig. 2:
 Three policies reproduce Fig. 4: "random", "no-retrain", "update-n".
 
 After every model update the ML-Scorer/ML-Recorder re-scores the whole
-molecule space (``Surrogate.predict``, ``rank_space``): at full width the
-message step's edge tensor is E*N*N*Hd*Hd floats per molecule (64 MiB at
-E=16, N=16, Hd=64, f32), so ``predict`` scores the space in molecule chunks
-sized by ``EDGE_BYTES_BUDGET``, each through the ``mpnn_mp`` kernel on the
-card. Chunking changes memory use only, not the result.
+molecule space (``Surrogate.predict``, ``rank_space``), in molecule chunks
+sized by ``EDGE_BYTES_BUDGET``. On the card each chunk's message steps go
+through the ``mpnn_mp`` kernel's typed entry, which builds no edge tensor.
+The plain path (the CPU) builds the message step's edge tensor, E*N*N*Hd*Hd
+floats per molecule (64 MiB at E=16, N=16, Hd=64, f32), and the chunk rule
+bounds it there. Chunking changes memory use only, not the result.
 
 Retraining runs in a Task Server worker thread while the Thinker's threads
 may be re-scoring with the same ``Surrogate``. The JAX package swaps in new
@@ -150,7 +151,9 @@ class Surrogate:
             return float(loss.detach().mean())
 
     def chunk_size(self, n_atoms: int) -> int:
-        """Molecules per chunk whose edge tensor fits EDGE_BYTES_BUDGET."""
+        """Molecules per chunk whose edge tensor fits EDGE_BYTES_BUDGET.
+        Only the plain path builds that tensor; the card's chunks keep the
+        same size."""
         cfg = self.cfg
         per_mol = (cfg.ensemble * n_atoms ** 2 * cfg.hidden ** 2
                    * self.model.embed.element_size())

@@ -2,8 +2,17 @@
 
 Dense-adjacency MPNN over molecular graphs: node states from one-hot atom
 types, T message steps (an edge matrix per bond type applied to neighbour
-states, summed over the dense adjacency by the ``mpnn_mp`` kernel) each
-followed by a GRU update, then a masked-sum readout MLP to one scalar.
+states, summed over the dense adjacency) each followed by a GRU update, then
+a masked-sum readout MLP to one scalar.
+
+The message step takes one of two forms. Where it resolves to the kernel (on
+CUDA tensors, ``impl`` None or "kernel"), each step calls
+``mp_ops.message_pass_typed`` with the bond types and ``edge_w``: no edge
+tensor is built, and pairs with adj = 0 are skipped. Where it resolves to
+the plain version (CPU tensors, or ``impl="ref"``), forward builds the
+(E*B, N, N, Hd, Hd) edge tensor from a one-hot GEMM, as the JAX package
+does, adds its bytes to the ``edge_bytes`` counter, and each step calls
+``mp_ops.message_pass`` on it.
 
 The ensemble axis that the JAX package vmaps is written out: every parameter
 carries a leading (E,) axis, node states are (E,B,N,Hd), and the message
@@ -25,6 +34,7 @@ from torch import nn
 
 from repro_torch import observability as obs
 from repro_torch.configs.mpnn_surrogate import MPNNConfig
+from repro_torch.kernels import dispatch
 from repro_torch.kernels.mpnn_mp import ops as mp_ops
 
 
@@ -82,7 +92,8 @@ class MPNNEnsemble(nn.Module):
         """atoms (B,N) int; bonds (B,N,N) int (0 = none); mask (B,N) in
         {0,1}; or each with a leading (E,) axis, one batch per member. impl
         picks the message step (see ``mp_ops.message_pass``); None takes the
-        kernel on CUDA and the plain version on the CPU."""
+        kernel on CUDA (the typed entry, no edge tensor) and the plain
+        version on the CPU (the edge tensor and its einsum)."""
         cfg = self.cfg
         E, hd = cfg.ensemble, cfg.hidden
         B, N = atoms.shape[-2:]
@@ -90,19 +101,30 @@ class MPNNEnsemble(nn.Module):
         members = torch.arange(E, device=atoms.device)[:, None, None]
         h = self.embed[members, atoms.long()] * mask[..., None]   # (E,B,N,Hd)
 
-        nb = cfg.num_bond_types
-        bond_oh = F.one_hot(bonds.long(), nb).to(h.dtype)
-        edge_mat = torch.matmul(bond_oh.reshape(-1, B * N * N, nb),
-                                self.edge_w)                    # (E,BNN,Hd*Hd)
-        edge_mat = edge_mat.reshape(E * B, N, N, hd, hd)
-        obs.counter("edge_bytes").inc(edge_mat.numel()
-                                      * edge_mat.element_size())
         adj = (bonds > 0).to(h.dtype) * mask[..., :, None] * mask[..., None, :]
-        adj = adj.expand(E, B, N, N).reshape(E * B, N, N)
+        impl = dispatch.resolve(impl, "mpnn_mp", h, self.edge_w)
+        if impl in ("kernel", "meta"):
+            bonds = bonds.to(torch.int32)
+
+            def step(h):
+                return mp_ops.message_pass_typed(h, bonds, self.edge_w, adj,
+                                                 impl=impl)
+        else:
+            nb = cfg.num_bond_types
+            bond_oh = F.one_hot(bonds.long(), nb).to(h.dtype)
+            edge_mat = torch.matmul(bond_oh.reshape(-1, B * N * N, nb),
+                                    self.edge_w)                # (E,BNN,Hd*Hd)
+            edge_mat = edge_mat.reshape(E * B, N, N, hd, hd)
+            obs.counter("edge_bytes").inc(edge_mat.numel()
+                                          * edge_mat.element_size())
+            adj_eb = adj.expand(E, B, N, N).reshape(E * B, N, N)
+
+            def step(h):
+                return mp_ops.message_pass(h.reshape(E * B, N, hd), edge_mat,
+                                           adj_eb, impl=impl).reshape(h.shape)
 
         for _ in range(cfg.message_steps):
-            m = mp_ops.message_pass(h.reshape(E * B, N, hd), edge_mat, adj,
-                                    impl=impl).reshape(E, B, N, hd)
+            m = step(h)
             hm = torch.cat([h, m], dim=-1)
             z = torch.sigmoid(_bmm(hm, self.gru_wz))
             r = torch.sigmoid(_bmm(hm, self.gru_wr))

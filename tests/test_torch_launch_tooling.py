@@ -432,6 +432,48 @@ def test_mpnn_meta_adds_the_bound_count():
     assert flops == 2 * B * N * N * Hd * Hd and m.shape == (B, N, Hd)
 
 
+@pytest.mark.parametrize("h_dims", [3, 4])
+def test_mpnn_typed_meta_count_equals_the_dense_entry(h_dims):
+    """The typed entry adds the dense entry's count for the same step."""
+    from repro_torch.kernels.mpnn_mp import ops
+
+    E, B, N, Hd, nb = 4, 3, 10, 16, 4
+    dense, _ = _count(lambda: ops.message_pass(
+        _meta(E * B, N, Hd, dtype=torch.float32),
+        _meta(E * B, N, N, Hd, Hd, dtype=torch.float32),
+        _meta(E * B, N, N, dtype=torch.float32)))
+    h = _meta(*((E * B,) if h_dims == 3 else (E, B)), N, Hd,
+              dtype=torch.float32)
+    flops, m = _count(lambda: ops.message_pass_typed(
+        h, _meta(B, N, N, dtype=torch.int32),
+        _meta(E, nb, Hd * Hd, dtype=torch.float32),
+        _meta(B, N, N, dtype=torch.float32)))
+    assert flops == dense > 0 and m.shape == h.shape
+
+
+def test_mpnn_typed_runs_on_local_molecules():
+    """Sharded, the typed entry runs on each rank's molecules with edge_w
+    whole, and counts one rank's share."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    from repro_torch.kernels.mpnn_mp import ops
+
+    E, B, N, Hd, nb = 4, 6, 8, 16, 4
+    with _fake_2x4() as mesh:
+        place = [Shard(0), Replicate()]
+        h = DTensor.from_local(_meta(E, B // 2, N, Hd, dtype=torch.float32),
+                               mesh, [Shard(1), Replicate()], run_check=False)
+        bonds = DTensor.from_local(_meta(B // 2, N, N, dtype=torch.int32),
+                                   mesh, place, run_check=False)
+        adj = DTensor.from_local(_meta(B // 2, N, N, dtype=torch.float32),
+                                 mesh, place, run_check=False)
+        w = _meta(E, nb, Hd * Hd, dtype=torch.float32)
+        flops, m = _count(lambda: ops.message_pass_typed(h, bonds, w, adj))
+    assert tuple(m.placements) == (Shard(1), Replicate())
+    assert m.shape == (E, B, N, Hd)
+    assert flops == 2 * E * (B // 2) * N * N * Hd * Hd
+
+
 # ---------------------------------------------------------------------------
 # the reduced cells
 # ---------------------------------------------------------------------------

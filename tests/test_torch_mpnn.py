@@ -1,25 +1,35 @@
 """The port's MPNN ensemble against ``repro.models.mpnn`` on parameters
 carried across with ``params_from_numpy``; inputs are real molecules from
-the synthetic space."""
-import jax
-import jax.numpy as jnp
+the synthetic space.
+
+JAX and the JAX package are imported inside the parity tests, so that the
+CUDA test also runs on a GPU host that has no JAX:
+
+    python -m pytest -q -m cuda tests/test_torch_mpnn.py
+"""
 import numpy as np
 import pytest
 import torch
 
-from repro.apps.electrolyte import Surrogate as JaxSurrogate
-from repro.configs import mpnn_surrogate as jax_configs
-from repro.data import molecules
-from repro.models import mpnn as jax_mpnn
+from repro_torch import observability as obs
 from repro_torch.configs import mpnn_surrogate as configs
 from repro_torch.models.convert import params_from_numpy
 from repro_torch.models.mpnn import MPNNEnsemble, param_shapes, ucb
 
-CONFIGS = {"reduced": (jax_configs.reduced(), configs.reduced()),
-           "full": (jax_configs.CONFIG, configs.CONFIG)}
+NAMES = ("reduced", "full")
+
+
+def _configs(name):
+    """(the JAX package's config, the port's) of one name."""
+    from repro.configs import mpnn_surrogate as jax_configs
+    return {"reduced": (jax_configs.reduced(), configs.reduced()),
+            "full": (jax_configs.CONFIG, configs.CONFIG)}[name]
 
 
 def _jax_params(jax_cfg, seed=0):
+    import jax
+
+    from repro.apps.electrolyte import Surrogate as JaxSurrogate
     return jax.tree.map(np.asarray, JaxSurrogate(jax_cfg, seed=seed).params)
 
 
@@ -30,12 +40,13 @@ def _model(cfg, tree):
 
 
 def test_configs_match_jax():
-    for jax_cfg, cfg in CONFIGS.values():
+    for name in NAMES:
+        jax_cfg, cfg = _configs(name)
         assert vars(cfg) == vars(jax_cfg)
 
 
 def test_params_round_trip():
-    jax_cfg, cfg = CONFIGS["reduced"]
+    jax_cfg, cfg = _configs("reduced")
     tree = _jax_params(jax_cfg)
     back = {n: t.numpy() for n, t in _model(cfg, tree).state_dict().items()}
     assert list(back) == list(param_shapes(cfg))
@@ -47,7 +58,7 @@ def test_params_round_trip():
 
 @pytest.mark.parametrize("fault", ["missing", "extra", "shape", "dtype"])
 def test_params_from_numpy_rejects(fault):
-    tree = dict(_jax_params(CONFIGS["reduced"][0]))
+    tree = dict(_jax_params(_configs("reduced")[0]))
     if fault == "missing":
         del tree["gru_wr"]
     elif fault == "extra":
@@ -84,7 +95,12 @@ def test_init_law():
                                          ("reduced", "kernel", 8),
                                          ("full", "ref", 2)])
 def test_forward_matches_ensemble_apply(name, impl, B):
-    jax_cfg, cfg = CONFIGS[name]
+    import jax
+    import jax.numpy as jnp
+
+    from repro.data import molecules
+    from repro.models import mpnn as jax_mpnn
+    jax_cfg, cfg = _configs(name)
     tree = _jax_params(jax_cfg, seed=1)
     space = molecules.MoleculeSpace(num_molecules=200)
     feats = molecules.featurize(space, range(5, 5 + B))
@@ -100,7 +116,47 @@ def test_forward_matches_ensemble_apply(name, impl, B):
 
 
 def test_ucb_matches_jax():
+    import jax.numpy as jnp
+
+    from repro.models import mpnn as jax_mpnn
     preds = np.random.default_rng(0).standard_normal((16, 50)).astype(np.float32)
     np.testing.assert_allclose(ucb(torch.from_numpy(preds), 1.5).numpy(),
                                np.asarray(jax_mpnn.ucb(jnp.asarray(preds), 1.5)),
                                rtol=1e-6, atol=1e-6)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("per_member", [False, True])
+def test_card_forward_builds_no_edge_tensor(cuda, per_member):
+    """On the card, forward with impl=None takes the typed kernel entry once
+    a message step: it builds no edge tensor (the ``edge_bytes`` counter
+    stands still) and agrees with the plain forward, which builds one."""
+    from repro_torch.data import molecules
+    from repro_torch.kernels.mpnn_mp import mpnn_mp
+
+    cfg = configs.CONFIG
+    model = MPNNEnsemble(cfg, torch.Generator().manual_seed(2)).to(cuda)
+    space = molecules.MoleculeSpace(num_molecules=200)
+    feats = molecules.featurize(space, range(7, 7 + 40))
+    idx = np.random.default_rng(0).integers(0, 40, (cfg.ensemble, 40))
+    x = [torch.as_tensor(feats[k][idx] if per_member else feats[k],
+                         device=cuda) for k in ("atoms", "bonds", "mask")]
+    edge_bytes = obs.counter("edge_bytes")
+    with torch.inference_mode():
+        before, launches = edge_bytes.value, mpnn_mp.LAUNCHES
+        got = model(*x)
+        torch.cuda.synchronize()
+        assert edge_bytes.value == before
+        assert mpnn_mp.LAUNCHES - launches == cfg.message_steps
+        want = model(*x, impl="ref")
+    assert edge_bytes.value > before
+    assert got.shape == (cfg.ensemble, 40)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=1e-5, atol=1e-5)

@@ -11,8 +11,9 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels.mpnn_mp import ops
-from repro_torch.kernels.mpnn_mp.ref import message_pass_reference
+from repro_torch.kernels.mpnn_mp import mpnn_mp, ops
+from repro_torch.kernels.mpnn_mp.ref import (message_pass_reference,
+                                             message_pass_typed_reference)
 
 SHAPES = [(3, 16, 32), (2, 8, 64), (2, 16, 64)]
 # bf16 results are f32 sums rounded to bf16 in both packages; summation order
@@ -86,3 +87,107 @@ def test_kernel_matches_reference(cuda, B, N, Hd, dtype):
     np.testing.assert_allclose(got.float().cpu().numpy(),
                                want.float().cpu().numpy(),
                                rtol=tol[0], atol=tol[1])
+
+
+def _typed_inputs(E, B, N, Hd, nb, *, per_member=False, masked=False,
+                  seed=0):
+    """h (E*B,N,Hd), bonds of every type 0..nb-1, edge_w (E,nb,Hd*Hd) and
+    an adjacency that is random over all pairs (type 0 included), with
+    masked atoms' rows and columns zeroed; bonds and adj (E,B,N,N) if
+    per_member, else (B,N,N)."""
+    rng = np.random.default_rng(seed)
+    lead = (E, B) if per_member else (B,)
+    h = rng.standard_normal((E * B, N, Hd)).astype(np.float32)
+    bonds = rng.integers(0, nb, (*lead, N, N)).astype(np.int32)
+    w = (0.1 * rng.standard_normal((E, nb, Hd * Hd))).astype(np.float32)
+    adj = (rng.random((*lead, N, N)) > 0.5).astype(np.float32)
+    if masked:
+        mask = (rng.random((*lead, N)) > 0.3).astype(np.float32)
+        adj *= mask[..., :, None] * mask[..., None, :]
+        h *= np.broadcast_to(mask, (E, B, N)).reshape(E * B, N, 1)
+    return tuple(map(torch.from_numpy, (h, bonds, w, adj)))
+
+
+def _dense(h, bonds, w, adj):
+    """The same step through ``message_pass_reference``, on the edge tensor
+    edge_w[e, bonds] and the adjacency expanded to every member."""
+    E, nb = w.shape[:2]
+    N, Hd = h.shape[-2:]
+    B = h.shape[0] // E
+    oh = torch.nn.functional.one_hot(bonds.long(), nb).to(w.dtype)
+    edge = torch.matmul(oh.reshape(-1, B * N * N, nb), w)
+    edge = edge.reshape(E * B, N, N, Hd, Hd)
+    adj = adj.expand(E, B, N, N).reshape(E * B, N, N)
+    return message_pass_reference(h, edge, adj)
+
+
+@pytest.mark.parametrize("N", [8, 16, 32])
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("per_member", [False, True])
+def test_typed_reference_matches_dense(N, masked, per_member):
+    h, bonds, w, adj = _typed_inputs(3, 4, N, 24, 4, per_member=per_member,
+                                     masked=masked)
+    got = message_pass_typed_reference(h, bonds, w, adj)
+    assert got.shape == h.shape and got.dtype == h.dtype
+    np.testing.assert_allclose(got.numpy(), _dense(h, bonds, w, adj).numpy(),
+                               rtol=1e-5, atol=1e-5)
+    E, B = w.shape[0], h.shape[0] // w.shape[0]
+    got4 = message_pass_typed_reference(h.reshape(E, B, N, 24), bonds, w, adj)
+    assert torch.equal(got4.reshape(h.shape), got)
+
+
+def test_typed_dispatch_on_cpu():
+    h, bonds, w, adj = _typed_inputs(2, 3, 8, 16, 4)
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.message_pass_typed(h, bonds, w, adj, impl="kernel")
+    with pytest.raises(ValueError, match="impl"):
+        ops.message_pass_typed(h, bonds, w, adj, impl="pallas")
+    want = message_pass_typed_reference(h, bonds, w, adj)
+    assert torch.equal(ops.message_pass_typed(h, bonds, w, adj), want)
+    assert torch.equal(ops.message_pass_typed(h, bonds, w, adj, impl="ref"),
+                       want)
+
+
+# (E, B, N, Hd, nb): every atom count and width the kernel takes at its
+# edges (N 32, Hd 128 in two column tiles, Hd 40 and 72 off the 64-column
+# tile, 3 bond types, 9 atoms leaving a row of the 64-row sub-tile empty),
+# and enough molecules (600) that a block walks several sub-tiles.
+TYPED_SHAPES = [(3, 5, 8, 32, 4), (2, 7, 16, 64, 4), (2, 3, 32, 128, 4),
+                (2, 9, 9, 40, 3), (2, 5, 12, 72, 2), (2, 600, 16, 16, 4),
+                (16, 20, 16, 64, 4)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("per_member", [False, True])
+@pytest.mark.parametrize("E,B,N,Hd,nb", TYPED_SHAPES)
+def test_typed_kernel_matches_reference(cuda, E, B, N, Hd, nb, per_member,
+                                        dtype):
+    h, bonds, w, adj = (t.to(cuda) for t in _typed_inputs(
+        E, B, N, Hd, nb, per_member=per_member, masked=True))
+    h, w = h.to(dtype), w.to(dtype)
+    got = ops.message_pass_typed(h, bonds, w, adj, impl="kernel")
+    got4 = ops.message_pass_typed(h.reshape(E, B, N, Hd), bonds, w, adj,
+                                  impl="kernel")
+    want = _dense(h, bonds, w, adj)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == h.shape
+    assert torch.equal(got4.reshape(h.shape), got)
+    tol = (1e-5, 1e-5) if dtype == torch.float32 else (BF16_RTOL, BF16_ATOL)
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(),
+                               rtol=tol[0], atol=tol[1])
+
+
+@pytest.mark.cuda
+def test_typed_kernel_refuses_what_it_does_not_take(cuda):
+    h, bonds, w, adj = (t.to(cuda) for t in _typed_inputs(2, 3, 8, 16, 4))
+    for args, err in [((h, bonds.long(), w, adj), TypeError),
+                      ((h, bonds, w.double(), adj), TypeError),
+                      ((h, bonds, w[:, :, :-1].contiguous(), adj), ValueError),
+                      ((h[1:], bonds, w, adj), ValueError),
+                      ((h.transpose(1, 2).contiguous().transpose(1, 2),
+                        bonds, w, adj), ValueError),
+                      ((h, bonds, w.repeat(1, 2, 1), adj), ValueError)]:
+        with pytest.raises(err):
+            mpnn_mp.message_pass_typed_cuda(*args)

@@ -330,7 +330,7 @@ def test_train_step_through_a_kernel_raises(arch, impls, monkeypatch):
 
 
 def test_every_kernel_refuses_grad():
-    """Each of the five wrappers refuses impl="kernel" on an input that
+    """Each of the six wrappers refuses impl="kernel" on an input that
     requires grad while grad mode is on, and only then."""
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.mamba2_ssd import ops as ssd_ops
@@ -350,10 +350,13 @@ def test_every_kernel_refuses_grad():
         "moe_gmm": lambda x: gmm_ops.gmm(x, r(2, 4, 4), impl="kernel"),
         "mpnn_mp": lambda x: mp_ops.message_pass(
             x, r(1, 3, 3, 4, 4), r(1, 3, 3), impl="kernel"),
+        "mpnn_mp_typed": lambda x: mp_ops.message_pass_typed(
+            x, torch.ones(1, 3, 3, dtype=torch.int32), r(1, 2, 16),
+            r(1, 3, 3), impl="kernel"),
     }
     shapes = {"flash_attention": (1, 8, 2, 4), "mamba2_ssd": (1, 8, 2, 4),
               "rwkv6_scan": (1, 8, 2, 4), "moe_gmm": (2, 3, 4),
-              "mpnn_mp": (1, 3, 4)}
+              "mpnn_mp": (1, 3, 4), "mpnn_mp_typed": (1, 3, 4)}
     for name, call in calls.items():
         x = r(*shapes[name]).requires_grad_(True)
         with pytest.raises(RuntimeError, match=f"{name}: .*{REFUSED}"):
