@@ -6,21 +6,24 @@
 Phases:
   1. Build each CUDA kernel of the main path from the sources in this
      checkout and hold it against its plain PyTorch version, in f32 and bf16,
-     at the JAX kernel tests' shapes and at the surrogate's chunk shape.
+     at the JAX kernel tests' shapes and at the plain path's chunk shape.
   2. Build the full-width MPNN-ensemble surrogate (E=16, hidden 64, seeded
-     random weights) and hold its kernel forward against its plain forward
-     on one chunk of real molecules.
+     random weights) and hold its kernel forward on the main path's chunk
+     (the whole 10,000-molecule space) against its plain forward over the
+     same molecules in plain-path chunks of 128.
   3. Serve: featurize the 10,000-molecule space and answer 3 re-score
      requests (predict, UCB, reorder) through ``rank_space``, perturbing the
-     weights between requests as a retrain would. Kernel launch counts are
-     set to 0 just before this phase and read just after it.
+     weights between requests as a retrain would; each predict is one chunk
+     on the card. Kernel launch counts are set to 0 just before this phase
+     and read just after it.
   4. Report: time each kernel, its plain version and the one PyTorch call
-     that computes the same function, with CUDA events at the surrogate's
+     that computes the same function, with CUDA events at the plain path's
      chunk shape, beside the bound for that work. 4b: the typed entry
-     (bond types and edge matrices, no edge tensor) at the chunk shape on
-     the space's first molecules, held at 1e-5 against its plain version
-     and against the dense kernel on the edge tensor built from the same
-     bonds, then timed beside its plain version and the roofline's bound.
+     (bond types and edge matrices, no edge tensor) on the space's real
+     bonds, held at 1e-5 against the dense kernel on the edge tensor built
+     from the same bonds at the plain path's chunk, and against its plain
+     version at the typed path's chunk (the whole space), where it is timed
+     beside its plain version and the roofline's bound.
   5. Hold the flash-attention kernel against its plain version on the six
      cases of the JAX kernel tests, in f32 and bf16, at the serving shape
      (8, 2048, 16 heads, 8 KV heads, hd 128) in bf16, and, in bf16 at hd
@@ -237,7 +240,8 @@ Phases:
      engine factory writes its flash launch count, 24 a request, to a file
      the script reads), and a one-worker ``ProcessPoolTaskServer`` whose
      method re-scores the 10,000-molecule space at full width on the card
-     (237 ``mpnn_mp`` launches a re-score). Back in this process: the
+     (3 ``mpnn_mp`` launches a re-score, one chunk; its peak device memory
+     is logged). Back in this process: the
      shard's tokens against an in-process prefill and decode on the same
      seeded weights, up to the first near-tie (top-2 logits within 1e-3),
      and the worker's scores within 1e-6 of the in-process re-score's.
@@ -787,21 +791,26 @@ def phase_kernels(chunk_batch: int) -> dict:
 
 
 def phase_surrogate(sur: Surrogate, feats: dict) -> None:
+    """The kernel forward on the main path's first chunk of the space (the
+    typed rule's, the whole space at full width) against the plain forward
+    over the same molecules in the plain path's chunks."""
     log("phase 2: full-width surrogate, kernel forward against plain forward")
-    chunk = sur.chunk_size(SPACE.max_atoms)
-    x = [torch.as_tensor(feats[k][:chunk], device=DEV)
-         for k in ("atoms", "bonds", "mask")]
+    n = min(sur.chunk_size(SPACE.max_atoms, "kernel"), SPACE.num_molecules)
+    plain = sur.chunk_size(SPACE.max_atoms, "ref")
+    x = [torch.as_tensor(feats[k][:n], device=DEV) for k in FEATURES]
     with torch.inference_mode():
         got = sur.model(*x, impl="kernel")
-        want = sur.model(*x, impl="ref")
+        want = torch.cat([sur.model(*(t[s:s + plain] for t in x), impl="ref")
+                          for s in range(0, n, plain)], dim=1)
     torch.cuda.synchronize()
     err = (got - want).abs().max().item()
-    check(got.shape == (CONFIG.ensemble, chunk), f"forward shape {tuple(got.shape)}")
+    check(got.shape == (CONFIG.ensemble, n), f"forward shape {tuple(got.shape)}")
     check(bool(torch.isfinite(got).all()), "non-finite predictions")
     check(torch.allclose(got, want, rtol=1e-4, atol=1e-4),
           f"kernel forward vs plain forward: max abs err {err}")
-    log(f"  E={CONFIG.ensemble} hidden={CONFIG.hidden} chunk={chunk}: "
-        f"max abs err {err:.3e} (rtol 1e-4, atol 1e-4)")
+    log(f"  E={CONFIG.ensemble} hidden={CONFIG.hidden}: {n} molecules in one "
+        f"kernel forward against {math.ceil(n / plain)} plain forwards of "
+        f"{plain}: max abs err {err:.3e} (rtol 1e-4, atol 1e-4)")
 
 
 def perturb(model: torch.nn.Module, gen: torch.Generator) -> None:
@@ -837,7 +846,8 @@ def phase_serve(sur: Surrogate, feats: dict) -> dict:
         log(f"  request {r}: {wall * 1e3:.1f} ms wall, top-10 "
             f"{order[:10].tolist()}, all {n} scores finite")
     launches = mpnn_mp.LAUNCHES
-    per_request = CONFIG.message_steps * math.ceil(n / sur.chunk_size(SPACE.max_atoms))
+    per_request = CONFIG.message_steps * math.ceil(
+        n / sur.chunk_size(SPACE.max_atoms, "kernel"))
     log(f"  mpnn_mp launches {launches} ({per_request} per re-score); peak "
         f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     check(launches == REQUESTS * per_request,
@@ -846,7 +856,7 @@ def phase_serve(sur: Surrogate, feats: dict) -> dict:
 
 
 def phase_report(chunk_batch: int) -> dict:
-    log("phase 4: time mpnn_mp at the surrogate chunk shape (f32)")
+    log("phase 4: time mpnn_mp at the plain path's chunk shape (f32)")
     gen = torch.Generator(device=DEV).manual_seed(SEED + 2)
     h, e, adj = kernel_inputs(chunk_batch, SPACE.max_atoms, CONFIG.hidden,
                               torch.float32, gen)
@@ -867,36 +877,50 @@ def phase_report(chunk_batch: int) -> dict:
             "library_ms": library_ms, "shape": [B, N, Hd], "dtype": "float32"}
 
 
-def phase_typed_report(chunk: int, feats: dict) -> dict:
-    """The typed entry at the surrogate's chunk shape, on the space's first
-    ``chunk`` molecules (real bonds and masks): held against its plain
-    version and against the dense kernel on the edge tensor built from the
-    same bonds and edge_w, then timed beside the plain version."""
-    log("phase 4b: the typed mpnn_mp entry at the surrogate chunk shape, real "
-        "bonds (f32)")
+def phase_typed_report(dense_chunk: int, chunk: int, feats: dict) -> dict:
+    """The typed entry on the space's first molecules (real bonds and
+    masks). On the first ``dense_chunk`` (the plain path's chunk) it is held
+    against the dense kernel on the edge tensor built from the same bonds
+    and edge_w. On the first ``chunk`` (the typed path's, the shape the
+    re-score gives it) it is held against its plain version, which builds no
+    edge tensor either, and timed beside it."""
+    log(f"phase 4b: the typed mpnn_mp entry at the typed path's chunk of "
+        f"{chunk} molecules and against the dense kernel at {dense_chunk}, "
+        f"real bonds (f32)")
     gen = torch.Generator(device=DEV).manual_seed(SEED + 3)
     E, Hd, nb = CONFIG.ensemble, CONFIG.hidden, CONFIG.num_bond_types
     bonds, mask = (torch.as_tensor(feats[k][:chunk], device=DEV)
                    for k in ("bonds", "mask"))
     B, N = mask.shape
     adj = (bonds > 0).float() * mask[:, :, None] * mask[:, None, :]
-    h = torch.randn(E, B, N, Hd, generator=gen, device=DEV) * mask[..., None]
-    h = h.reshape(E * B, N, Hd)
+    h4 = torch.randn(E, B, N, Hd, generator=gen, device=DEV) * mask[..., None]
+    h = h4.reshape(E * B, N, Hd)
     w = 0.05 * torch.randn(E, nb, Hd * Hd, generator=gen, device=DEV)
-    got = ops.message_pass_typed(h, bonds, w, adj, impl="kernel")
-    plain = message_pass_typed_reference(h, bonds, w, adj)
-    edge = torch.matmul(torch.nn.functional.one_hot(bonds.long(), nb).float()
-                        .reshape(1, B * N * N, nb), w)
-    dense = ops.message_pass(h, edge.reshape(E * B, N, N, Hd, Hd),
-                             adj.expand(E, B, N, N).reshape(E * B, N, N),
+    errs = {}
+
+    b = dense_chunk
+    hb = h4[:, :b].reshape(E * b, N, Hd)
+    got = ops.message_pass_typed(hb, bonds[:b], w, adj[:b], impl="kernel")
+    edge = torch.matmul(torch.nn.functional.one_hot(bonds[:b].long(), nb)
+                        .float().reshape(1, b * N * N, nb), w)
+    dense = ops.message_pass(hb, edge.reshape(E * b, N, N, Hd, Hd),
+                             adj[:b].expand(E, b, N, N).reshape(E * b, N, N),
                              impl="kernel")
     del edge
+    errs["dense kernel"] = (got - dense).abs().max().item()
+    check(torch.allclose(got, dense, rtol=1e-5, atol=1e-5),
+          f"typed mpnn_mp vs dense kernel at {b} molecules: max abs err "
+          f"{errs['dense kernel']}")
+    del got, dense, hb
+
+    got = ops.message_pass_typed(h, bonds, w, adj, impl="kernel")
+    plain = message_pass_typed_reference(h, bonds, w, adj)
     torch.cuda.synchronize()
-    errs = {}
-    for name, want in (("plain", plain), ("dense kernel", dense)):
-        errs[name] = (got - want).abs().max().item()
-        check(torch.allclose(got, want, rtol=1e-5, atol=1e-5),
-              f"typed mpnn_mp vs {name}: max abs err {errs[name]}")
+    errs["plain"] = (got - plain).abs().max().item()
+    check(torch.allclose(got, plain, rtol=1e-5, atol=1e-5),
+          f"typed mpnn_mp vs plain at {B} molecules: max abs err "
+          f"{errs['plain']}")
+    del got, plain
     ms = median_ms(lambda: ops.message_pass_typed(h, bonds, w, adj,
                                                    impl="kernel"))
     plain_ms = median_ms(lambda: message_pass_typed_reference(h, bonds, w, adj))
@@ -907,9 +931,10 @@ def phase_typed_report(chunk: int, feats: dict) -> dict:
     flops = 2.0 * Hd * Hd * E * pairs
     bytes_ms = moved / HBM_BYTES_PER_S * 1e3
     flops_ms = flops / F32_FLOP_PER_S * 1e3
-    log(f"  max abs err {errs['plain']:.3e} against the plain version, "
-        f"{errs['dense kernel']:.3e} against the dense kernel (rtol 1e-5, "
-        f"atol 1e-5); {int(pairs)} adjacent pairs ({pairs / adj.numel():.4f})")
+    log(f"  max abs err {errs['plain']:.3e} against the plain version at "
+        f"{B} molecules, {errs['dense kernel']:.3e} against the dense kernel "
+        f"at {b} (rtol 1e-5, atol 1e-5); {int(pairs)} adjacent pairs "
+        f"({pairs / adj.numel():.4f})")
     log(f"  kernel {ms:.4f} ms, plain {plain_ms:.3f} ms; bound "
         f"{max(bytes_ms, flops_ms):.4f} ms ({flops / 1e9:.3f} GFLOP, "
         f"{moved / 2**20:.2f} MiB): {100 * max(bytes_ms, flops_ms) / ms:.1f}%")
@@ -917,7 +942,7 @@ def phase_typed_report(chunk: int, feats: dict) -> dict:
             "bound_ms": max(bytes_ms, flops_ms),
             "bound_by": "bytes" if bytes_ms >= flops_ms else "operations",
             "max_abs_err": errs["plain"],
-            "max_abs_err_dense": errs["dense kernel"],
+            "max_abs_err_dense": errs["dense kernel"], "dense_molecules": b,
             "shape": [E, B, N, Hd, nb], "dtype": "float32"}
 
 
@@ -2058,7 +2083,7 @@ def phase_campaign(epoch_ms: float) -> dict:
         f"at a time, so that a {CAMPAIGN.train_epochs}-epoch retrain at "
         f"{epoch_ms:.1f} ms an epoch returns within {CAMPAIGN.n_retrain} "
         f"results)")
-    chunk = Surrogate(CONFIG, seed=SEED, device=DEV).chunk_size(16)
+    chunk = Surrogate(CONFIG, seed=SEED, device=DEV).chunk_size(16, "kernel")
     per_space = CONFIG.message_steps * math.ceil(CAMPAIGN.num_molecules / chunk)
     per_mae = CONFIG.message_steps * math.ceil(64 / chunk)
     sizes = {k: 4 * math.prod(shape)
@@ -2746,6 +2771,7 @@ def pool_rescore(seed: int) -> dict:
     wall = time.perf_counter() - t0
     return {"scores": scores, "order": order,
             "launches": mpnn_mp.LAUNCHES - before, "wall_s": wall,
+            "peak_bytes": torch.cuda.max_memory_allocated(),
             "pid": os.getpid(), "device": torch.cuda.get_device_name(0)}
 
 
@@ -3000,7 +3026,7 @@ def phase_fabric(lm_timing: dict) -> dict:
     feats = featurize(SPACE, range(SPACE.num_molecules))
     want, order = rank_space(sur, feats, KAPPA)
     per_task = CONFIG.message_steps * math.ceil(
-        SPACE.num_molecules / sur.chunk_size(SPACE.max_atoms))
+        SPACE.num_molecules / sur.chunk_size(SPACE.max_atoms, "kernel"))
     del sur, feats
     torch.cuda.empty_cache()
     for t, info in enumerate(fab["rescore"]):
@@ -3021,7 +3047,8 @@ def phase_fabric(lm_timing: dict) -> dict:
             f"in-process re-score (rtol {SCORE_RTOL:.0e}), order differs at "
             f"{diff.size} tied places, {info['launches']} mpnn_mp launches "
             f"({CONFIG.message_steps} steps x {per_task // CONFIG.message_steps}"
-            f" chunks), {info['wall_s'] * 1e3:.1f} ms")
+            f" chunks), {info['wall_s'] * 1e3:.1f} ms, the worker's peak "
+            f"device memory {info['peak_bytes'] / 2**30:.2f} GiB")
     syn, env = out["synapp"], out["synapp_envelope"]
     return {"flash": {"launches": shard["flash_launches"],
                       "launches_per_request": per},
@@ -3031,6 +3058,8 @@ def phase_fabric(lm_timing: dict) -> dict:
                         "shard_prefill_ms": [x * 1e3 for x in shard["prefill_s"]],
                         "shard_tok_s": shard_tok_s,
                         "rescore_ms": [i["wall_s"] * 1e3 for i in fab["rescore"]],
+                        "rescore_peak_bytes": [i["peak_bytes"]
+                                               for i in fab["rescore"]],
                         "synapp_per_task_overhead_ms":
                             syn["per_task_overhead_ms"],
                         "synapp_result_latency_ms": syn["result_latency_ms"],
@@ -3784,7 +3813,8 @@ def main() -> None:
         for line in ptxas_summary(name):
             log(f"  ptxas {name}: {line}")
     sur = Surrogate(CONFIG, seed=SEED, device=DEV)
-    chunk_batch = CONFIG.ensemble * sur.chunk_size(SPACE.max_atoms)
+    # the dense kernel's edge tensor at the plain path's chunk
+    chunk_batch = CONFIG.ensemble * sur.chunk_size(SPACE.max_atoms, "ref")
     kernel = phase_kernels(chunk_batch)
 
     t0 = time.perf_counter()
@@ -3795,7 +3825,10 @@ def main() -> None:
     phase_surrogate(sur, feats)
     kernel.update(phase_serve(sur, feats))
     kernel.update(phase_report(chunk_batch))
-    kernel["typed"] = phase_typed_report(sur.chunk_size(SPACE.max_atoms), feats)
+    kernel["typed"] = phase_typed_report(
+        sur.chunk_size(SPACE.max_atoms, "ref"),
+        min(sur.chunk_size(SPACE.max_atoms, "kernel"), SPACE.num_molecules),
+        feats)
     del sur, feats
     torch.cuda.empty_cache()
 

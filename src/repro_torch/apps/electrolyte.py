@@ -15,11 +15,16 @@ Three policies reproduce Fig. 4: "random", "no-retrain", "update-n".
 
 After every model update the ML-Scorer/ML-Recorder re-scores the whole
 molecule space (``Surrogate.predict``, ``rank_space``), in molecule chunks
-sized by ``EDGE_BYTES_BUDGET``. On the card each chunk's message steps go
-through the ``mpnn_mp`` kernel's typed entry, which builds no edge tensor.
-The plain path (the CPU) builds the message step's edge tensor, E*N*N*Hd*Hd
-floats per molecule (64 MiB at E=16, N=16, Hd=64, f32), and the chunk rule
-bounds it there. Chunking changes memory use only, not the result.
+whose forward working set fits ``EDGE_BYTES_BUDGET``, as the model reckons
+it for the path its forward takes (``Surrogate.chunk_size``,
+``MPNNEnsemble.bytes_per_molecule``). The plain path (the CPU)
+builds the message step's edge tensor, E*N*N*Hd*Hd floats per molecule
+(64 MiB at E=16, N=16, Hd=64, f32: 128 molecules a chunk). On the card the
+message steps go through the ``mpnn_mp`` kernel's typed entry, which builds
+no edge tensor; what bounds a chunk there is the (E, N, Hd) activations of
+a message step's GRU, 640 KiB per molecule at those widths, so a space of
+up to 13,107 molecules runs as one chunk, in one forward. Chunking changes
+memory use only, not the result.
 
 Retraining runs in a Task Server worker thread while the Thinker's threads
 may be re-scoring with the same ``Surrogate``. The JAX package swaps in new
@@ -52,7 +57,7 @@ from repro_torch.data import molecules
 from repro_torch.models.convert import params_from_numpy, params_to_numpy
 from repro_torch.models.mpnn import MPNNEnsemble, mpnn_loss
 
-EDGE_BYTES_BUDGET = 8 << 30   # bytes of edge tensor per chunk
+EDGE_BYTES_BUDGET = 8 << 30   # bytes of a chunk's working set (chunk_size)
 FEATURES = ("atoms", "bonds", "mask")
 
 
@@ -150,35 +155,37 @@ class Surrogate:
             self.state = (model, y_mean, y_std)
             return float(loss.detach().mean())
 
-    def chunk_size(self, n_atoms: int) -> int:
-        """Molecules per chunk whose edge tensor fits EDGE_BYTES_BUDGET.
-        Only the plain path builds that tensor; the card's chunks keep the
-        same size."""
-        cfg = self.cfg
-        per_mol = (cfg.ensemble * n_atoms ** 2 * cfg.hidden ** 2
-                   * self.model.embed.element_size())
-        return max(1, EDGE_BYTES_BUDGET // per_mol)
+    def chunk_size(self, n_atoms: int, impl: str = "ref") -> int:
+        """Molecules per chunk whose forward working set on the path
+        ``impl`` (as ``MPNNEnsemble.message_impl`` resolves it) fits
+        EDGE_BYTES_BUDGET; the model reckons the bytes a molecule
+        (``MPNNEnsemble.bytes_per_molecule``). A caller that names no path
+        gets the plain path's rule, whose chunks fit either path."""
+        return max(1, EDGE_BYTES_BUDGET
+                   // self.model.bytes_per_molecule(n_atoms, impl))
 
     def predict(self, feats) -> np.ndarray:
         """feats {"atoms","bonds","mask"} for B molecules, on the host ->
         (E, B) numpy predictions, de-standardized. The features go to the
-        device in one copy (1,152 bytes a molecule at N=16, against 64 MiB
-        of edge tensor): a copy from pageable host memory waits for the
-        stream, so a copy a chunk would stall the host once a chunk."""
+        device in one copy (1,152 bytes a molecule at N=16): a copy from
+        pageable host memory waits for the stream, so a copy a chunk would
+        stall the host once a chunk."""
         with obs.layer("mpnn.predict") as sp:
             model, y_mean, y_std = self.state
             atoms, bonds, mask = (torch.as_tensor(np.asarray(feats[k]),
                                                   device=self.device)
                                   for k in FEATURES)
-            chunk = self.chunk_size(atoms.shape[1])
-            starts = range(0, atoms.shape[0], chunk)
             edge_bytes = obs.counter("edge_bytes")
             before = edge_bytes.value
             with torch.inference_mode():
-                preds = torch.cat([
-                    model(atoms[s:s + chunk], bonds[s:s + chunk],
-                          mask[s:s + chunk])
-                    for s in starts], dim=1)
+                impl = model.message_impl(atoms)
+                chunk = self.chunk_size(atoms.shape[1], impl)
+                starts = range(0, atoms.shape[0], chunk)
+                parts = [model(atoms[s:s + chunk], bonds[s:s + chunk],
+                               mask[s:s + chunk], impl=impl)
+                         for s in starts]
+                preds = parts[0] if len(parts) == 1 else torch.cat(parts,
+                                                                   dim=1)
             out = preds.cpu().numpy() * y_std + y_mean
             sp.attrs.update(molecules=atoms.shape[0], chunks=len(starts),
                             edge_bytes=edge_bytes.value - before)

@@ -74,6 +74,18 @@ def _bmm(x, w):
     return torch.bmm(x.reshape(E, B * N, D), w).reshape(E, B, N, w.shape[-1])
 
 
+# (E, N, Hd) activations a molecule holds at a typed message step's peak:
+# h, m, cat([h, m]) (two), z, r, r*h, cat([r*h, m]) (two) and cand, the
+# temporaries of the GRU update in ``MPNNEnsemble.forward``
+TYPED_ACTIVATIONS = 10
+
+
+def _typed(impl: str) -> bool:
+    """Whether the message step resolved to ``impl`` takes the typed entry
+    (bond types and edge matrices) and builds no edge tensor."""
+    return impl in ("kernel", "meta")
+
+
 class MPNNEnsemble(nn.Module):
     """E MPNNs evaluated together; forward returns (E, B) predictions."""
 
@@ -87,6 +99,22 @@ class MPNNEnsemble(nn.Module):
                 nn.init.trunc_normal_(p, 0.0, 1.0, -2.0, 2.0,
                                       generator=generator).mul_(scales[name])
             self.register_parameter(name, nn.Parameter(p))
+
+    def message_impl(self, lead: torch.Tensor, impl: str | None = None) -> str:
+        """The message step's implementation for inputs on ``lead``'s
+        device, as ``forward`` resolves it."""
+        return dispatch.resolve(impl, "mpnn_mp", lead, self.edge_w)
+
+    def bytes_per_molecule(self, n_atoms: int, impl: str) -> int:
+        """Bytes of the forward's largest working set a molecule of
+        ``n_atoms`` on the path ``impl`` (resolved) takes: the edge tensor,
+        E*N*N*Hd*Hd values, on the plain path; TYPED_ACTIVATIONS (E, N, Hd)
+        activations on the typed path, which builds no edge tensor."""
+        cfg = self.cfg
+        act = cfg.ensemble * n_atoms * cfg.hidden * self.embed.element_size()
+        if _typed(impl):
+            return TYPED_ACTIVATIONS * act
+        return act * n_atoms * cfg.hidden
 
     def forward(self, atoms, bonds, mask, impl: str | None = None):
         """atoms (B,N) int; bonds (B,N,N) int (0 = none); mask (B,N) in
@@ -102,8 +130,8 @@ class MPNNEnsemble(nn.Module):
         h = self.embed[members, atoms.long()] * mask[..., None]   # (E,B,N,Hd)
 
         adj = (bonds > 0).to(h.dtype) * mask[..., :, None] * mask[..., None, :]
-        impl = dispatch.resolve(impl, "mpnn_mp", h, self.edge_w)
-        if impl in ("kernel", "meta"):
+        impl = self.message_impl(h, impl)
+        if _typed(impl):
             bonds = bonds.to(torch.int32)
 
             def step(h):
